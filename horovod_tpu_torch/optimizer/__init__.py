@@ -1,0 +1,4 @@
+"""DistributedOptimizer and the startup broadcasts."""
+
+from .distributed import DistributedOptimizer
+from .functions import broadcast_optimizer_state, broadcast_parameters

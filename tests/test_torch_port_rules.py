@@ -1,0 +1,94 @@
+"""The port's package rules.
+
+``horovod_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and never
+``jax``, ``flax``, ``optax`` or anything of ``horovod_tpu``; its entry points
+run on the card unless the caller asks for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import horovod_tpu_torch as thvd
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
+
+
+def _port_files():
+    files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_nothing_of_jax_or_the_reference():
+    files = _port_files()
+    assert len(files) > 10
+    bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
+                                            & FORBIDDEN)
+           for f in files}
+    assert {f: r for f, r in bad.items() if r} == {}
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        "horovod_tpu_torch." + ".".join(
+            f.relative_to(REPO / "horovod_tpu_torch").with_suffix("").parts)
+        for f in (REPO / "horovod_tpu_torch").rglob("*.py")
+        if f.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_init_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        thvd.init()
+    assert not thvd.is_initialized()
+
+
+def test_cpu_world_of_one_answers_like_the_reference():
+    thvd.init(device="cpu")
+    try:
+        assert (thvd.rank(), thvd.size(), thvd.local_rank(),
+                thvd.local_size(), thvd.cross_rank(),
+                thvd.cross_size()) == (0, 1, 0, 1, 0, 1)
+        assert thvd.device() == torch.device("cpu")
+        assert thvd.cuda_built() == (torch.version.cuda is not None)
+        assert thvd.nccl_built() == torch.distributed.is_nccl_available()
+        x = torch.arange(6.0)
+        for op, want in ((thvd.Sum, x), (thvd.Average, x), (thvd.Min, x),
+                         (thvd.Max, x), (thvd.Product, x)):
+            assert torch.equal(thvd.allreduce(x, op), want)
+        y = thvd.allreduce(x, thvd.Average, prescale_factor=2.0,
+                           postscale_factor=0.5)
+        assert torch.equal(y, x)
+        half = thvd.allreduce(x, compression=thvd.Compression.bf16)
+        assert half.dtype == torch.float32 and torch.equal(half, x)
+        assert torch.equal(thvd.broadcast(x, 0), x)
+        thvd.barrier()
+        with pytest.raises(ValueError, match="root rank"):
+            thvd.broadcast(x, 1)
+    finally:
+        thvd.shutdown()
