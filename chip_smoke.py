@@ -12,29 +12,40 @@ Phases, one line each; any failure raises and the script exits nonzero:
    into ``horovod_tpu_torch/_build/``.
 3. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
    against its plain PyTorch version on the same inputs: at the training
-   shape (B=2, T=2048, H=32, D=128, bf16, causal) and at a small f32
-   non-causal case with a key-padding bias and a ragged T=1000 (D=64). Times
-   each kernel at the training shape beside its bound, its plain version and
-   ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
-   it).
+   shape (B=2, T=2048, H=32, D=128, causal) in bf16 and again in f32, and at
+   a small f32 non-causal case with a key-padding bias and a ragged T=1000
+   (D=64). Times each kernel at the bf16 training shape beside its bound,
+   its plain version and ``F.scaled_dot_product_attention`` (the yardstick;
+   the port never calls it).
 4. model   — a small f32 Llama (head dim 64) on the card: logits and
    gradients with flash on (the kernels) agree with flash off.
 5. train   — the main path: ``init()`` (an NCCL world of one), the
    Llama-3-8B-width model cut to 2 layers, ``create_train_state`` (parameter
-   broadcast), ``DistributedOptimizer(AdamW)`` for 3 steps at batch 2 x 2048
-   tokens. Requires finite, falling losses, each kernel launched at least
-   twice (once per layer) per step, and one all-reduce per fusion bucket.
+   broadcast), ``DistributedOptimizer(AdamW)`` for 4 steps at batch 2 x 2048
+   tokens, the last under ``torch.profiler``. Requires finite, falling
+   losses, each kernel launched at least twice (once per layer) per step,
+   and one all-reduce launched per fusion bucket per step (counted where
+   ``allreduce_async_`` hands it to ``torch.distributed``). Prints the step
+   time and tokens/s, and the profiled step's device time by kernel group.
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.
 
-Tolerances: outputs in bf16 are held to 2^-6 of their largest magnitude —
-two bf16 ulps there — because the kernel and the plain version each round an
-f32 value (summed in another order) to bf16; f32 outputs and the f32
-statistics m and l to 1e-4 of their largest magnitude, far above f32
-summation-order differences over at most 2048 terms.
+Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
+with RMS that of the compared plain tensor. Both sides sum in f32, in
+different orders, and round once to the output type.
+
+- bf16 outputs, r = 2^-7: two roundings of nearly equal f32 values land at
+  most one bf16 ulp apart, and one ulp is at most 2^-7 of the element's
+  magnitude. The RMS term covers elements near zero, where the f32
+  summation-order difference (about 1e-6 of the summed magnitudes) can
+  exceed the rounding step.
+- f32 outputs and the f32 statistics m and l, r = 5e-5: f32 summation-order
+  differences over at most 2048 terms are near 1e-6 of the summed
+  magnitudes; 5e-5 leaves a margin of more than ten.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -101,22 +112,23 @@ def bound(name, B, H, Tq, Tk, D, causal, itemsize):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def max_err(a, b):
-    return (a.float() - b.float()).abs().max().item()
-
-
 def check(what, a, ref, dtype):
-    """Hold ``a`` to ``ref`` at the tolerance stated in the module doc;
-    return ``(max |a - ref|, tolerance)``."""
-    scale = ref.float().abs().max().item()
-    if not scale > 0.0:
+    """Hold ``a`` to ``ref`` element by element at the tolerance stated in
+    the module doc; return ``(max |a - ref|, largest error / tolerance)``."""
+    ref = ref.float()
+    rms = ref.square().mean().sqrt().item()
+    if not rms > 0.0:
         raise AssertionError(f"{what}: the plain version is all zero")
-    tol = (2 ** -6 if dtype == "bf16" else 1e-4) * scale
-    err = max_err(a, ref)
-    if not err <= tol:
-        raise AssertionError(f"{what}: max |kernel - plain| = {err:.3e} "
-                             f"exceeds {tol:.3e}")
-    return err, tol
+    r = 2 ** -7 if dtype == "bf16" else 5e-5
+    err = (a.float() - ref).abs()
+    ratio = err / (r * (ref.abs() + rms))
+    worst = int(ratio.argmax())
+    if not ratio.max().item() <= 1.0:
+        raise AssertionError(
+            f"{what}: |kernel - plain| = {err.view(-1)[worst].item():.3e} at "
+            f"plain = {ref.view(-1)[worst].item():.3e} exceeds "
+            f"{r:.3g} * (|plain| + RMS {rms:.3e})")
+    return err.max().item(), ratio.max().item()
 
 
 def kernel_case(fa, torch, *, B, Tq, Tk, H, D, dtype, causal, lengths,
@@ -136,9 +148,9 @@ def kernel_case(fa, torch, *, B, Tq, Tk, H, D, dtype, causal, lengths,
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     o, m, l = fa.fa_fwd(q, k, v, bias, **kw)
     ro, rm, rl = fa._reference_partial(q, k, v, bias, **kw)
-    # Per kernel, the (error, tolerance) of its output with the largest
-    # error relative to its tolerance.
-    worst = lambda *pairs: max(pairs, key=lambda p: p[0] / p[1])
+    # Per kernel, the (max error, error / tolerance) of its output with the
+    # largest error relative to its tolerance.
+    worst = lambda *pairs: max(pairs, key=lambda p: p[1])
     errs = {"fa_fwd": worst(check("B1 o", o, ro, tag),
                             check("B1 m", m, rm, "f32"),
                             check("B1 l", l, rl, "f32"))}
@@ -186,8 +198,19 @@ def time_kernels(fa, torch, args, kw):
 
 def small_model_check(torch, hvd_llama):
     """Flash on (the f32, D=64 kernels) against flash off on a small Llama:
-    logits and every parameter's gradient within 1e-4 of their largest
-    magnitude."""
+    logits and every parameter's gradient, element by element, within
+    ``1e-4 * (|plain| + RMS)``. Whole models: the kernels' f32 differences
+    pass through every later layer and its gradient, so the bound is twice
+    the kernels' own. Returns the largest error / tolerance."""
+    def close(what, a, ref):
+        err = (a - ref).abs()
+        tol = 1e-4 * (ref.abs() + ref.square().mean().sqrt())
+        ratio = (err / tol.clamp_min(1e-30)).max().item()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{what}: |flash - plain| reaches "
+                                 f"{ratio:.3f} of its bound")
+        return ratio
+
     from horovod_tpu_torch.train import next_token_loss
     base = hvd_llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                                  n_heads=4, n_kv_heads=2, hidden_dim=512,
@@ -202,10 +225,10 @@ def small_model_check(torch, hvd_llama):
         next_token_loss(logits, tokens).backward()
         out[flash] = (logits.detach(),
                       {n: p.grad for n, p in model.named_parameters()})
-    err = check("small-model logits", out[True][0], out[False][0], "f32")[0]
+    err = close("small-model logits", out[True][0], out[False][0])
     for name, g in out[False][1].items():
-        err = max(err, check(f"small-model grad {name}", out[True][1][name],
-                             g, "f32")[0])
+        err = max(err, close(f"small-model grad {name}", out[True][1][name],
+                             g))
     return err
 
 
@@ -225,12 +248,57 @@ def expected_buckets(model, threshold):
     return count
 
 
+#: Kernel-name fragments of each group in the profiled step's device time.
+GROUPS = (("B1 fa_fwd", ("fa_fwd_kernel",)),
+          ("B2 fa_bwd_dq", ("fa_bwd_dq_kernel",)),
+          ("B3 fa_bwd_dkv", ("fa_bwd_dkv_kernel",)),
+          ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+          ("foreach (AdamW)", ("multi_tensor_apply",)),
+          ("nccl", ("nccl",)))
+
+
+def device_breakdown(prof, wall_s):
+    """The profiled step's device time: each kernel group's ms and share of
+    the summed kernel time, the rest with its largest kernels, and the
+    device's idle share of the step's host-clock wall time (1 - union of
+    kernel intervals / wall)."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return "the profiler saw no device time: not measured"
+    ms = dict.fromkeys([g for g, _ in GROUPS] + ["other"], 0.0)
+    other, spans = {}, []
+    for e in kernels:
+        t = e.time_range.elapsed_us() / 1e3
+        group = next((g for g, frags in GROUPS
+                      if any(f in e.name.lower() for f in frags)), "other")
+        ms[group] += t
+        if group == "other":
+            other[e.name[:100]] = other.get(e.name[:100], 0.0) + t
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    total = sum(ms.values())
+    parts = "; ".join(f"{g} {t:.1f} ms ({t / total:.1%})"
+                      for g, t in ms.items())
+    top = "\n".join(f"    other: {t:.2f} ms  {name}" for name, t in
+                    sorted(other.items(), key=lambda x: -x[1])[:8])
+    return (f"kernels {total:.1f} ms summed over {len(kernels)} launches: "
+            f"{parts}; device busy {busy_us / 1e3:.1f} ms, idle "
+            f"{1 - busy_us / 1e3 / (wall_s * 1e3):.1%} of the step\n{top}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives.ops import allreduce_async_
     from horovod_tpu_torch.core.config import Config
     from horovod_tpu_torch.models import llama as hvd_llama
     from horovod_tpu_torch.ops import _build
@@ -254,15 +322,18 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
 
-    big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, dtype=torch.bfloat16,
-               causal=True, lengths=None, seed=0)
-    errs, args, kw = kernel_case(fa, torch, **big)
+    big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
+               lengths=None, seed=0)
+    errs, args, kw = kernel_case(fa, torch, dtype=torch.bfloat16, **big)
+    f32_errs, _, _ = kernel_case(fa, torch, dtype=torch.float32, **big)
+    torch.cuda.empty_cache()
     small_errs, _, _ = kernel_case(
         fa, torch, B=2, Tq=1000, Tk=1000, H=4, D=64, dtype=torch.float32,
         causal=False, lengths=[1000, 613], seed=1)
-    fmt = lambda e: {n: f"{err:.2e} (tol {tol:.2e})"
-                     for n, (err, tol) in e.items()}
-    log("kernels", f"agree with plain: training shape {fmt(errs)}; small "
+    fmt = lambda e: {n: f"max err {err:.2e}, err/tol {ratio:.3f}"
+                     for n, (err, ratio) in e.items()}
+    log("kernels", f"agree with plain: training shape bf16 {fmt(errs)}; "
+                   f"training shape f32 {fmt(f32_errs)}; small "
                    f"f32/bias/ragged {fmt(small_errs)}")
     ms, library = time_kernels(fa, torch, args, kw)
     bounds = {name: bound(name, 2, 32, 2048, 2048, 128, True, 2)
@@ -275,8 +346,8 @@ def main():
     del args
     torch.cuda.empty_cache()
 
-    log("model", f"small f32 Llama, flash on vs off: max err "
-                 f"{small_model_check(torch, hvd_llama):.3e}")
+    log("model", f"small f32 Llama, flash on vs off: worst err/tol "
+                 f"{small_model_check(torch, hvd_llama):.3f}")
 
     hvd.init()
     cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
@@ -292,16 +363,22 @@ def main():
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    n_steps = 3
+    n_steps = 4  # the last one under the profiler
     fa.reset_launch_counts()
+    allreduce_async_.launches = 0
     losses, times = [], []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, loss = step(state, tokens, tokens)
-        losses.append(loss.item())
-        times.append(time.perf_counter() - t)
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if i == n_steps - 1 else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, tokens, tokens)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t)
     launches = {name: fn.launches for name, fn in fa.KERNELS.items()}
+    allreduces = allreduce_async_.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -313,24 +390,30 @@ def main():
                                  f"steps of a {cfg.n_layers}-layer model")
     threshold = Config.from_env().fusion_threshold_bytes
     want = expected_buckets(model, threshold)
-    if opt.collectives_last_step != want:
+    # A world of one: the gradient buckets are the steps' only all-reduces
+    # (the loss is averaged only across more than one rank).
+    if allreduces != want * n_steps:
         raise AssertionError(
-            f"{opt.collectives_last_step} gradient all-reduces, expected "
-            f"{want} for HOROVOD_FUSION_THRESHOLD={threshold}")
-    step_s = sorted(times[1:])[len(times[1:]) // 2]
+            f"{allreduces} all-reduces launched in {n_steps} steps, expected "
+            f"{want} a step for HOROVOD_FUSION_THRESHOLD={threshold}")
+    timed = times[1:-1]
+    step_s = sorted(timed)[len(timed) // 2]
     log("train", f"llama3_8b width, 2 layers, {hvd.size()} rank(s) over "
                  f"NCCL: losses {losses}; step {step_s * 1e3:.1f} ms "
                  f"(first {times[0] * 1e3:.1f} ms); "
                  f"{batch * seq / step_s:.0f} tokens/s/GPU; "
-                 f"{opt.collectives_last_step} buckets at threshold "
-                 f"{threshold}; launches {launches}; peak {peak_gb:.1f} GB; "
-                 f"on {card}")
+                 f"{want} buckets at threshold {threshold}, {allreduces} "
+                 f"all-reduces launched; kernel launches {launches}; "
+                 f"peak {peak_gb:.1f} GB; on {card}")
+    log("profile", f"step {n_steps} under torch.profiler, "
+                   f"{times[-1] * 1e3:.1f} ms on the host clock: "
+                   f"{device_breakdown(prof, times[-1])}")
     hvd.shutdown()
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCE,
         "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": errs[name][0], "tolerance": errs[name][1],
+        "max_abs_err": errs[name][0], "err_over_tol": errs[name][1],
         "ms": ms[name][0],
         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": library[name],

@@ -129,7 +129,14 @@ def allreduce_async_(buf: torch.Tensor, op: str = Average, *,
         buf.mul_(prescale_factor)
     work = dist.all_reduce(buf, _DIST_OP[op], group=_group(process_set),
                            async_op=True)
+    allreduce_async_.launches += 1
     return Handle(buf, work, op, _set_size(process_set), postscale_factor)
+
+
+#: All-reduces handed to ``torch.distributed`` — every all-reduce of this
+#: module goes through :func:`allreduce_async_`. A plain count; reset it by
+#: assignment.
+allreduce_async_.launches = 0
 
 
 def allreduce(tensor: torch.Tensor, op: str = Average, *,

@@ -1,15 +1,15 @@
 """Build the hand-written CUDA kernels and load them with ``ctypes``.
 
-Every ``ops/csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` (one
-``nvcc`` process per source, all started together), linked into one shared
-library with a plain C interface under ``horovod_tpu_torch/_build/``, and
-loaded with ``ctypes``. The library's name carries a digest of the sources
-and flags, so an edited source rebuilds and an unchanged one is reused. A file
-lock serialises builds between processes of one host (every rank of a
-data-parallel job calls :func:`library` at its first kernel launch).
+``ops/csrc/*.cu`` is compiled with one ``nvcc`` call for ``sm_90a`` straight
+into a shared library with a plain C interface under
+``horovod_tpu_torch/_build/``, and loaded with ``ctypes``. The library's name
+carries a digest of the sources and flags, so an edited source rebuilds and
+an unchanged one is reused. A file lock serialises builds between processes
+of one host (every rank of a data-parallel job calls :func:`library` at its
+first kernel launch).
 
-Nothing here runs at import time: the CPU tests import every module, and this
-machine may have no ``nvcc``.
+Nothing here runs at import time: the CPU tests import every module, and a
+machine without the CUDA toolkit has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -83,20 +83,6 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> str:
-    """Run the commands concurrently; raise with the compiler's output if any
-    fails, else return their combined output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    for cmd, p, out in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
-                               f"{out}")
-    return "".join(outs)
-
-
 def build() -> Path:
     """Compile the kernels unless this digest is already built; return the
     shared library's path."""
@@ -110,18 +96,16 @@ def build() -> Path:
         if out.exists():  # another process built it while we waited
             return out
         t0 = time.perf_counter()
-        nvcc = _nvcc()
-        tag = f"{os.getpid()}"
-        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                        for src, obj in zip(_sources(), objs)])
-        tmp = out.with_suffix(f".{tag}.tmp")
-        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                          *map(str, objs)]])
+        tmp = out.with_suffix(".tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, _sources())]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}")
         os.replace(tmp, out)
-        for obj in objs:
-            obj.unlink()
-        build_log = log
+        build_log = proc.stdout
         build_seconds = time.perf_counter() - t0
     return out
 

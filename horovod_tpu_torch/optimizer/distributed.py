@@ -75,8 +75,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._buckets = [_Bucket([ordered[i] for i in idxs]) for idxs in plan]
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
         self._passes = {p: 0 for p in ordered}
-        #: All-reduces launched by the last completed ``synchronize()``.
-        self.collectives_last_step = 0
         for p in ordered:
             p.register_post_accumulate_grad_hook(self._hook)
 
@@ -111,7 +109,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         back. A bucket whose hooks did not all fire (a parameter unused this
         step) is launched here with zero gradients, so every rank issues the
         same collectives."""
-        launched = 0
         for bucket in self._buckets:
             if bucket.inflight is None:
                 for p in bucket.params:
@@ -120,7 +117,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 self._launch(bucket)
             handle, parts = bucket.inflight
             red = handle.wait()
-            launched += 1
             off = 0
             for p, shape, cctx in parts:
                 n = shape.numel()
@@ -131,7 +127,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 off += n
             bucket.inflight = None
             bucket.pending = len(bucket.params)
-        self.collectives_last_step = launched
 
     def step(self, closure=None):
         self.synchronize()

@@ -6,19 +6,34 @@
   small cases the training shape of ``chip_smoke.py`` does not reach: head
   dims 64 and 128 in bf16 and f32, cross-attention, causal with Tq != Tk,
   ragged sequence edges, key-padding bias, and rows that see no key.
-  Tolerances as in ``chip_smoke.py``: bf16 outputs within 2^-6 of their
-  largest magnitude (two bf16 ulps: each side rounds an f32 value summed in
-  another order), f32 outputs within 1e-4 of theirs.
-- Data-parallel training across every GPU of the machine over NCCL: the
-  ranks end bit-identical, and within 1e-5 of one process that trains on the
-  whole global batch. The optimizer is SGD with momentum, linear in the
-  gradient: AdamW's first steps divide each gradient element by its own
-  magnitude, so an element whose gradient is near AdamW's eps turns
-  summation-order differences into an update difference of up to the
-  learning rate (seen on four H100s: one embedding element of 131,072 off
-  by 2.7e-5 after two steps).
+  Tolerances as in ``chip_smoke.py``, per element: ``|kernel - plain| <= r *
+  (|plain| + RMS(plain))``, r = 2^-7 for bf16 outputs (each side rounds an
+  f32 value summed in another order, and the two roundings land at most one
+  bf16 ulp, at most 2^-7 of the magnitude, apart; the RMS term covers
+  elements near zero) and r = 5e-5 for f32 outputs (f32 summation-order
+  differences are near 1e-6 of the summed magnitudes).
+- Data-parallel training across every GPU of the machine over NCCL, for two
+  steps, with AdamW (lr 1e-4, weight decay 1e-4, the main path's settings)
+  and with SGD and momentum. The ranks end bit-identical, and they are held
+  to one process that trains on the whole global batch. With SGD, which is
+  linear in the gradient, every parameter is within 1e-5. With AdamW:
+
+  - the first step's reduced gradient is within 1e-4 of (|g| + RMS(g)) of
+    the one process's: the same terms summed in another order. The worst
+    reading on four H100s was 1.08e-5, in the embedding.
+  - every parameter is within 1e-5 (absolute plus relative), except where
+    the gradient lies within 100 eps (1e-6) of zero at some step and differs
+    between the runs. There AdamW's first update, lr * g / (|g| + eps), is
+    too steep a function of g. On four H100s, embedding element [429, 188]
+    had a first-step gradient of -1.16e-8 in one process and -4.24e-8 across
+    four ranks. That is an update of 0.537 lr against 0.809 lr, and it
+    leaves the parameter 2.71e-5 apart. At 100 eps the slope has fallen far
+    enough that a gradient difference of 1.2e-7 moves the parameter by
+    about 1.2e-7. Such elements, 1,899 of 1,443,072 there, are held to the 4 lr
+    that two AdamW steps on each side can move them.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -61,10 +76,13 @@ CASES = {
 
 
 def _close(what, got, ref):
-    tol = (2 ** -6 if got.dtype == torch.bfloat16 else 1e-4) \
-        * ref.float().abs().max().item()
-    err = (got.float() - ref.float()).abs().max().item()
-    assert err <= tol, f"{what}: {err:.3e} > {tol:.3e}"
+    ref = ref.float()
+    r = 2 ** -7 if got.dtype == torch.bfloat16 else 5e-5
+    tol = r * (ref.abs() + ref.square().mean().sqrt())
+    err = (got.float() - ref).abs()
+    assert (err <= tol).all(), (
+        f"{what}: {int((err > tol).sum())} elements off; worst err/tol "
+        f"{(err / tol).max().item():.3f}")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -110,7 +128,7 @@ _WORKER = textwrap.dedent("""
     from horovod_tpu_torch.train import (create_train_state, make_train_step,
                                          next_token_loss)
 
-    out_dir, device = sys.argv[1], sys.argv[2]
+    out_dir, device, opt_name = sys.argv[1:4]
     torch.backends.cuda.matmul.allow_tf32 = False
     hvd.init(device=device)
     rank, size = hvd.rank(), hvd.size()
@@ -118,29 +136,36 @@ _WORKER = textwrap.dedent("""
                       n_kv_heads=2, hidden_dim=512, max_seq_len=128,
                       dtype=torch.float32, use_flash=True)
     model = Llama(cfg, seed=rank)  # ranks differ until the broadcast
-    opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
-        named_parameters=model.named_parameters())
+    if opt_name == "adamw":  # the main path's optimizer and settings
+        inner = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                  weight_decay=1e-4)
+    else:
+        inner = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    opt = hvd.DistributedOptimizer(inner,
+                                   named_parameters=model.named_parameters())
     state = create_train_state(model, opt)
     step = make_train_step(model, opt, next_token_loss)
     tokens = torch.randint(0, cfg.vocab_size, (8, 128),
                            generator=torch.Generator().manual_seed(0))
     per = tokens.shape[0] // size
     shard = tokens[rank * per:(rank + 1) * per].to(hvd.device())
-    losses = []
-    for _ in range(2):
+    losses, out = [], {}
+    for s in range(2):
         state, loss = step(state, shard, shard)
         losses.append(loss.item())
-    np.savez(f"{out_dir}/w{size}_r{rank}.npz", losses=np.asarray(losses),
-             **{k: v.detach().cpu().numpy()
+        for name, p in model.named_parameters():  # the reduced gradient
+            out[f"grad{s}/{name}"] = p.grad.detach().cpu().numpy()
+    out.update({k: v.detach().cpu().numpy()
                 for k, v in model.state_dict().items()})
+    np.savez(f"{out_dir}/{opt_name}_w{size}_r{rank}.npz",
+             losses=np.asarray(losses), **out)
     hvd.shutdown()
 """)
 
 
-def run_world(out_dir, n, device):
-    """Run the worker in a world of ``n`` processes; return each rank's
-    saved arrays."""
+def run_world(out_dir, n, device, opt_name):
+    """Run the worker in a world of ``n`` processes with the optimizer
+    ``opt_name``; return each rank's saved arrays."""
     script = os.path.join(out_dir, "worker.py")
     with open(script, "w") as f:
         f.write(_WORKER)
@@ -152,25 +177,106 @@ def run_world(out_dir, n, device):
         env.update(HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
                    HOROVOD_NUM_PROCESSES=str(n))
     procs = [subprocess.Popen(
-        [sys.executable, script, out_dir, device],
+        [sys.executable, script, out_dir, device, opt_name],
         env=dict(env, HOROVOD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
     for p in procs:
         out, _ = p.communicate(timeout=300)
         assert p.returncode == 0, out
-    return [dict(np.load(os.path.join(out_dir, f"w{n}_r{r}.npz")))
+    return [dict(np.load(os.path.join(out_dir, f"{opt_name}_w{n}_r{r}.npz")))
             for r in range(n)]
 
 
-def test_dp_across_gpus_matches_one_process(cuda, tmp_path):
+#: AdamW's eps (torch and optax default), and the multiple of it within
+#: which an element's gradient makes its AdamW update too steep a function of
+#: the gradient to hold to 1e-5 (module doc).
+ADAMW_EPS = 1e-8
+NEAR_EPS = 100
+LR = 1e-4  # the worker's AdamW learning rate
+
+
+def _rms(x):
+    return float(np.sqrt(np.mean(x.astype(np.float64) ** 2)))
+
+
+def near_eps_elements(single, dist, name):
+    """Mask of the elements of parameter ``name`` whose reduced gradient, at
+    some step, differs between the two runs while lying within ``NEAR_EPS``
+    eps of zero on either side."""
+    mask = np.zeros(single[name].shape, bool)
+    for s in range(2):
+        a, b = single[f"grad{s}/{name}"], dist[f"grad{s}/{name}"]
+        small = np.minimum(np.abs(a), np.abs(b)) < NEAR_EPS * ADAMW_EPS
+        mask |= small & (a != b)
+    return mask
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "sgd"])
+def test_dp_across_gpus_matches_one_process(cuda, tmp_path, opt_name):
     n = torch.cuda.device_count()
     if n < 2 or 8 % n:
         pytest.skip("needs 2, 4 or 8 GPUs")
-    ranks = run_world(str(tmp_path), n, "cuda")
+    ranks = run_world(str(tmp_path), n, "cuda", opt_name)
+    (single,) = run_world(str(tmp_path), 1, "cuda", opt_name)
+    check_against_one_process(ranks, single, opt_name)
+
+
+def check_against_one_process(ranks, single, opt_name):
+    """Hold the ranks of a data-parallel run to each other and to one
+    process that trained on the whole batch (module doc)."""
     for other in ranks[1:]:
         for name, w in ranks[0].items():
             np.testing.assert_array_equal(other[name], w, err_msg=name)
-    (single,) = run_world(str(tmp_path), 1, "cuda")
-    for name, w in single.items():
-        np.testing.assert_allclose(ranks[0][name], w, rtol=1e-5, atol=1e-5,
-                                   err_msg=name)
+    dist, n = ranks[0], len(ranks)
+    np.testing.assert_allclose(dist["losses"], single["losses"], rtol=1e-5)
+    params = [k for k in single if k != "losses" and not k.startswith("grad")]
+    if opt_name == "sgd":
+        for name in params:
+            np.testing.assert_allclose(dist[name], single[name], rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+        return
+    # Read everything first, so that a failure shows the whole reading.
+    report = {"grad_err": None, "elements": 0, "near_eps": 0,
+              "worst_held": None, "worst_near_eps": None}
+
+    def element(name, i):
+        return {"param": name, "index": [int(x) for x in i],
+                "dtheta": float(abs(dist[name][i] - single[name][i])),
+                "grad_one_process": [float(single[f"grad{s}/{name}"][i])
+                                     for s in range(2)],
+                f"grad_{n}_ranks": [float(dist[f"grad{s}/{name}"][i])
+                                    for s in range(2)]}
+
+    def keep_worst(key, candidate, by):
+        if report[key] is None or candidate[by] > report[key][by]:
+            report[key] = candidate
+
+    excess, bound = {}, {}
+    for name in params:
+        # The first step's reduced gradient is taken at the same parameters
+        # on both sides: the same terms summed in another order.
+        g, h = single[f"grad0/{name}"], dist[f"grad0/{name}"]
+        rel = np.abs(h - g) / (np.abs(g) + _rms(g))
+        i = np.unravel_index(rel.argmax(), rel.shape)
+        keep_worst("grad_err", {"param": name, "rel": float(rel[i]),
+                                "abs": float(abs(h - g)[i])}, "rel")
+        a, b = single[name], dist[name]
+        skip = near_eps_elements(single, dist, name)
+        diff = np.abs(b - a)
+        excess[name] = np.where(skip, 0.0,
+                                diff - 1e-5 * (1 + np.abs(a))).max()
+        bound[name] = diff[skip].max(initial=0.0)
+        report["elements"] += a.size
+        report["near_eps"] += int(skip.sum())
+        i = np.unravel_index(np.where(skip, -1.0, diff).argmax(), a.shape)
+        keep_worst("worst_held", element(name, i), "dtheta")
+        if skip.any():
+            i = np.unravel_index(np.where(skip, diff, -1.0).argmax(), a.shape)
+            keep_worst("worst_near_eps", element(name, i), "dtheta")
+    print(f"adamw across {n} GPUs:", json.dumps(report))
+    assert report["grad_err"]["rel"] <= 1e-4, report
+    for name in params:
+        assert excess[name] <= 0.0, (name, report)
+        # Near eps each side still takes an AdamW step, at most lr in size.
+        assert bound[name] <= 2 * 2 * LR, (name, report)
+    assert report["near_eps"] <= 1e-2 * report["elements"], report

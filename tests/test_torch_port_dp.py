@@ -3,6 +3,7 @@
 - ``Config.from_env`` field parity under one environment;
 - the gradient bucket count against the ``buckets`` field of the JAX
   ``collective_issue`` telemetry event, for the same tree and threshold;
+- one all-reduce launched per bucket at each optimizer step;
 - two AdamW steps of the port in a 2-process gloo world against
   ``make_train_step`` on the 8-device CPU mesh, same global batch: the
   parameters agree within 1e-5 (and the world's reduce ops and broadcast
@@ -114,6 +115,32 @@ def test_bucket_count_matches_collective_issue_event(threshold, monkeypatch):
         params = [torch.nn.Parameter(t) for t in leaves]
         opt = thvd.DistributedOptimizer(torch.optim.SGD(params, lr=0.1))
         assert len(opt.buckets) == want
+    finally:
+        thvd.shutdown()
+
+
+@pytest.mark.parametrize("threshold, want", [(0, 4), (400, 2), (None, 1)])
+def test_each_step_launches_one_allreduce_per_bucket(threshold, want):
+    """``allreduce_async_.launches`` counts the all-reduces handed to
+    ``torch.distributed``: each ``DistributedOptimizer`` step launches
+    exactly one per fusion bucket (parameters of 512, 64, 256 and 16 bytes, packed in
+    reverse order)."""
+    cfg = tconfig.Config(fusion_threshold_bytes=-1 if threshold is None
+                         else threshold)
+    thvd.init(device="cpu", config=cfg)
+    try:
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(8, 16),
+                                    torch.nn.Linear(16, 4))
+        opt = thvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1))
+        assert len(opt.buckets) == want
+        tops.allreduce_async_.launches = 0
+        for _ in range(2):
+            opt.zero_grad()
+            model(torch.randn(4, 8)).square().sum().backward()
+            opt.step()
+        assert tops.allreduce_async_.launches == 2 * want
     finally:
         thvd.shutdown()
 
