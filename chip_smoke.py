@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card.
+"""Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
+and of its Adasum path across up to four cards where the machine has them.
 
     python3 chip_smoke.py
 
@@ -10,16 +11,28 @@ Phases, one line each; any failure raises and the script exits nonzero:
    them.
 2. build   — builds ``horovod_tpu_torch/ops/csrc/*.cu`` with nvcc for sm_90a
    into ``horovod_tpu_torch/_build/``.
-3. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
+3. adasum  — the Adasum path, ``DistributedOptimizer(AdamW, op=Adasum)``,
+   needs two ranks: Adasum in a world of one is identity, so on one card
+   the phase prints that and runs nothing. With 2 or more cards it starts
+   a world of n ranks over NCCL (n the largest power of 2 at most
+   min(4, cards), one card each, the port's ``HOROVOD_*`` environment) and
+   trains the model of phase 6 for 3 steps, a different batch per rank.
+   It requires log2(n) launches of B4 and of B5 per rank per step, finite
+   losses, parameters bit-identical across the ranks, and rank 0's first
+   combined gradient within tolerance of the plain butterfly of the
+   gathered local gradients. Prints the step time and the third step's
+   device time by kernel group. It runs before this process allocates
+   anything on the cards.
+4. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
    against its plain PyTorch version on the same inputs: at the training
    shape (B=2, T=2048, H=32, D=128, causal) in bf16 and again in f32, and at
    a small f32 non-causal case with a key-padding bias and a ragged T=1000
    (D=64). Times each kernel at the bf16 training shape beside its bound,
    its plain version and ``F.scaled_dot_product_attention`` (the yardstick;
    the port never calls it).
-4. model   — a small f32 Llama (head dim 64) on the card: logits and
+5. model   — a small f32 Llama (head dim 64) on the card: logits and
    gradients with flash on (the kernels) agree with flash off.
-5. train   — the main path: ``init()`` (an NCCL world of one), the
+6. train   — the main path: ``init()`` (an NCCL world of one), the
    Llama-3-8B-width model cut to 2 layers, ``create_train_state`` (parameter
    broadcast), ``DistributedOptimizer(AdamW)`` for 4 steps at batch 2 x 2048
    tokens, the last under ``torch.profiler``. Requires finite, falling
@@ -27,6 +40,16 @@ Phases, one line each; any failure raises and the script exits nonzero:
    and one all-reduce launched per fusion bucket per step (counted where
    ``allreduce_async_`` hands it to ``torch.distributed``). Prints the step
    time and tokens/s, and the profiled step's device time by kernel group.
+7. adasum-kernels — the Adasum kernels (B4 the three sums, B5 the combine)
+   against their plain PyTorch versions. Main-path case: the flat f32
+   gradients (1,486,901,248 elements each, in ``DistributedOptimizer``
+   order) of the same model on two seeded batches, the pair two ranks
+   exchange at the butterfly's first level. Edge cases: n = 65,536 and
+   1,000,003, a = 0 (the combine is b), a = b (it is a), orthogonal vectors
+   (it is a + b), and misaligned slices. Times both at the main-path shape
+   beside their bounds, their plain versions and their yardsticks (three
+   ``torch.dot`` calls for B4, ``torch.add(a.mul(ca), b, alpha=cb)`` for
+   B5; the port calls neither).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.
@@ -43,23 +66,45 @@ different orders, and round once to the output type.
 - f32 outputs and the f32 statistics m and l, r = 5e-5: f32 summation-order
   differences over at most 2048 terms are near 1e-6 of the summed
   magnitudes; 5e-5 leaves a margin of more than ten.
+
+The Adasum kernels:
+
+- B4's three sums within 1e-6 of the sums of their terms' magnitudes
+  (sum |a_i b_i|, sum a_i^2, sum b_i^2). Both sides sum in f64 in different
+  orders and round once to f32, so they differ by at most about one f32
+  rounding (6e-8 of the magnitude). Its coefficients within 1e-5 relative.
+- B5, given the same coefficients, per element within 2^-22 (|ca a| + |cb
+  b|): both sides round ca a, cb b and their sum once each, so expect 0.
+- The Adasum path's combined gradient within 1e-5 (|ref| + RMS(ref)) of the
+  plain butterfly: the two differ only in the order of the f64 sums, which
+  can move a coefficient by one f32 rounding.
 """
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
-SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+FA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+FUSED_SOURCE = "horovod_tpu_torch/ops/csrc/fused.cu"
+SOURCES = {"fa_fwd": FA_SOURCE, "fa_bwd_dq": FA_SOURCE,
+           "fa_bwd_dkv": FA_SOURCE, "norms_dot": FUSED_SOURCE,
+           "combine": FUSED_SOURCE}
 REPLACES = {"fa_fwd": "horovod_tpu/ops/flash_attention.py:57",
             "fa_bwd_dq": "horovod_tpu/ops/flash_attention.py:323",
-            "fa_bwd_dkv": "horovod_tpu/ops/flash_attention.py:357"}
+            "fa_bwd_dkv": "horovod_tpu/ops/flash_attention.py:357",
+            "norms_dot": "horovod_tpu/ops/fused.py:45",
+            "combine": "horovod_tpu/ops/fused.py:101"}
 #: Products each kernel does per visible (q, k) pair and head dim, 2 FLOP each.
 PRODUCTS = {"fa_fwd": 2, "fa_bwd_dq": 3, "fa_bwd_dkv": 4}
 
@@ -252,6 +297,9 @@ def expected_buckets(model, threshold):
 GROUPS = (("B1 fa_fwd", ("fa_fwd_kernel",)),
           ("B2 fa_bwd_dq", ("fa_bwd_dq_kernel",)),
           ("B3 fa_bwd_dkv", ("fa_bwd_dkv_kernel",)),
+          ("B4 norms_dot", ("norms_dot_partial_kernel",
+                            "norms_dot_final_kernel")),
+          ("B5 combine", ("combine_kernel",)),
           ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
           ("foreach (AdamW)", ("multi_tensor_apply",)),
           ("nccl", ("nccl",)))
@@ -292,6 +340,318 @@ def device_breakdown(prof, wall_s):
             f"{1 - busy_us / 1e3 / (wall_s * 1e3):.1%} of the step\n{top}")
 
 
+def fused_bound(name, n):
+    """Least time (ms) for B4 (``name`` "norms_dot": reads a and b) or B5
+    ("combine": reads a and b, writes out) on n f32 elements: the larger of
+    the bytes over the memory rate and the f32 operations (3 products and 3
+    sums a pair for B4, 2 products and a sum for B5) over the f32 rate."""
+    nbytes = (2 if name == "norms_dot" else 3) * 4 * n
+    flops = (6 if name == "norms_dot" else 3) * n
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+CHUNK = 1 << 26  # elements per chunk of the f64 checks, to bound scratch
+
+
+def magnitude_sums(torch, a, b):
+    """(sum |a_i b_i|, sum a_i^2, sum b_i^2) in f64: B4's tolerance scale."""
+    acc = torch.zeros(3, dtype=torch.float64, device=a.device)
+    for i in range(0, a.numel(), CHUNK):
+        x, y = a[i:i + CHUNK].double(), b[i:i + CHUNK].double()
+        acc += torch.stack([(x * y).abs().sum(), x @ x, y @ y])
+    return acc.tolist()
+
+
+def fused_check(fused, torch, what, a, b):
+    """B4 and B5 against their plain versions on one pair, at the
+    tolerances of the module doc. Returns ``{kernel: (max error, error /
+    tolerance)}`` and B4's device buffer ``[a.b, |a|^2, |b|^2, ca, cb]``."""
+    ratio = lambda err, tol: 0.0 if err == 0 else err / tol
+    stats = fused._norms_dot_kernel(a, b)
+    plain = fused._plain_norms_dot(a, b)
+    b4 = []
+    for name, got, want, mag in zip(("a.b", "|a|^2", "|b|^2"),
+                                    stats[:3].tolist(), plain,
+                                    magnitude_sums(torch, a, b)):
+        err = abs(got - want.item())
+        if not err <= 1e-6 * mag:
+            raise AssertionError(f"B4 {what} {name}: kernel {got!r}, plain "
+                                 f"{want.item()!r}, over 1e-6 * {mag:.4e}")
+        b4.append((err, ratio(err, 1e-6 * mag)))
+    for got, want in zip(stats[3:].tolist(),
+                         fused.adasum_coefficients(*plain)):
+        want = want.item()
+        if not abs(got - want) <= 1e-5 * abs(want):
+            raise AssertionError(f"B4 {what} coefficient: kernel {got!r}, "
+                                 f"plain {want!r}")
+    out = fused._combine_kernel(a, b, stats)
+    ca, cb = stats[3], stats[4]
+    worst = (0.0, 0.0)
+    for i in range(0, a.numel(), CHUNK):
+        x, y = a[i:i + CHUNK], b[i:i + CHUNK]
+        err = (out[i:i + CHUNK] - fused._plain_scale_add(x, y, ca, cb)).abs()
+        tol = 2 ** -22 * ((ca * x).abs() + (cb * y).abs())
+        bad = err > tol
+        if bool(bad.any()):
+            j = int(bad.nonzero()[0])
+            raise AssertionError(f"B5 {what}: element {i + j} off by "
+                                 f"{err[j].item():.3e}, tolerance "
+                                 f"{tol[j].item():.3e}")
+        e = err.max().item()
+        r = torch.where(err == 0, 0.0, err / tol).max().item()
+        worst = (max(worst[0], e), max(worst[1], r))
+    return {"norms_dot": max(b4, key=lambda p: p[1]),
+            "combine": worst}, stats, out
+
+
+def fused_edge_cases(fused, torch):
+    """B4 and B5 on the edge cases of the module doc; the identities the
+    combine must meet hold exactly. Returns the worst (error, error /
+    tolerance) of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mk = lambda n: torch.randn(n, generator=gen, device="cuda")
+    half = torch.arange(70_000, device="cuda") < 35_000
+    cases = {"n65536": (mk(65536), mk(65536)),
+             "ragged 1000003": (mk(1_000_003), mk(1_000_003)),
+             "a = 0": (torch.zeros(70_001, device="cuda"), mk(70_001)),
+             "orthogonal": (mk(70_000) * half, mk(70_000) * ~half),
+             "misaligned slices": (mk(300_003)[1:-1], mk(300_004)[3:])}
+    x = mk(70_001)
+    cases["a = b"] = (x, x.clone())
+    worst = {"norms_dot": (0.0, 0.0), "combine": (0.0, 0.0)}
+    for what, (a, b) in cases.items():
+        errs, _, out = fused_check(fused, torch, what, a, b)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e, key=lambda p: p[1])
+        want = {"a = 0": (b, "b"), "a = b": (a, "a"),
+                "orthogonal": (a + b, "a + b")}.get(what)
+        if want is not None and not torch.equal(out, want[0]):
+            raise AssertionError(f"combine {what}: not exactly {want[1]}")
+        if not torch.equal(fused.fused_combine(a, b),
+                           fused.fused_combine(b, a)):
+            raise AssertionError(f"combine {what}: not symmetric")
+    return worst
+
+
+def flat_gradient(torch, model, cfg, seed, next_token_loss):
+    """The model's gradient on one seeded batch of 2 x 2048 tokens,
+    flattened in ``DistributedOptimizer`` order (the parameters' order)
+    into one f32 vector."""
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                           device="cuda")
+    next_token_loss(model(tokens), tokens).backward()
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def time_fused(fused, torch, a, b, stats, out):
+    """ms of B4 and B5 at the main-path shape, of their plain versions, and
+    of their yardsticks."""
+    ca, cb = stats[3], stats[4]
+    cb_f = cb.item()
+    ms = {"norms_dot": (time_ms(lambda: fused._norms_dot_kernel(a, b)),
+                        time_ms(lambda: fused._plain_norms_dot(a, b), 2)),
+          "combine": (time_ms(lambda: fused._combine_kernel(a, b, stats,
+                                                            out)),
+                      time_ms(lambda: fused._plain_scale_add(a, b, ca, cb),
+                              2))}
+    library = {"norms_dot": time_ms(lambda: (torch.dot(a, b), torch.dot(a, a),
+                                             torch.dot(b, b))),
+               "combine": time_ms(lambda: torch.add(a.mul(ca), b,
+                                                    alpha=cb_f))}
+    return ms, library
+
+
+def plain_butterfly(fused, vecs):
+    """Position 0's result of the butterfly over ``vecs`` (one per rank),
+    with the plain combine. After the level at distance d every aligned
+    block of 2d positions holds one value, so this is the pairwise tree;
+    the vectors are consumed to bound memory."""
+    while len(vecs) > 1:
+        nxt = []
+        while vecs:
+            a, b = vecs.pop(0), vecs.pop(0)
+            nxt.append(fused._plain_combine(a, b))
+            del a, b
+        vecs = nxt
+    return vecs[0]
+
+
+def close_per_element(torch, got, ref, r):
+    """Largest ``|got - ref| / (r (|ref| + RMS(ref)))``, chunk by chunk."""
+    sq = sum(ref[i:i + CHUNK].double().square().sum().item()
+             for i in range(0, ref.numel(), CHUNK))
+    rms = math.sqrt(sq / ref.numel())
+    worst = (0.0, 0.0)
+    for i in range(0, ref.numel(), CHUNK):
+        g, w = got[i:i + CHUNK].double(), ref[i:i + CHUNK].double()
+        err = (g - w).abs()
+        worst = (max(worst[0], err.max().item()),
+                 max(worst[1], (err / (r * (w.abs() + rms))).max().item()))
+    return worst
+
+
+def adasum_worker(out_dir):
+    """One rank of the ``adasum`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.train import (create_train_state, make_train_step,
+                                         next_token_loss)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                              use_flash=True)
+    model = hvd_llama.Llama(cfg, seed=rank)  # the broadcast makes them equal
+    params = list(model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), op=hvd.Adasum)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, next_token_loss)
+    gen = torch.Generator(device="cuda").manual_seed(1000 + rank)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                           device="cuda")
+    kept = {}
+    synchronize = opt.synchronize
+
+    def keep_first_step():
+        """The first step's local and combined gradients, flattened."""
+        first = not kept
+        if first:
+            kept["local"] = torch.cat([p.grad.reshape(-1) for p in params])
+        synchronize()
+        if first:
+            kept["combined"] = torch.cat([p.grad.reshape(-1) for p in params])
+
+    opt.synchronize = keep_first_step
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], []
+    for i in range(3):
+        fused.reset_launch_counts()
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if i == 2 and rank == 0 else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, tokens, tokens)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t)
+        launches.append([fused.fused_norms_dot.launches,
+                         fused.fused_combine.launches])
+    res = {"rank": rank, "size": n, "losses": losses, "times": times,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        res["profile"] = device_breakdown(prof, times[-1])
+    differ = 0
+    for p in params:
+        buf = p.detach().clone()
+        dist.broadcast(buf, 0)
+        differ += int(not torch.equal(buf, p))
+    res["params_differing_from_rank0"] = differ
+    local, combined = kept.pop("local"), kept.pop("combined")
+    del state, step, opt, model, params, buf, synchronize, keep_first_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    gathered = ([torch.empty_like(local) for _ in range(n)] if rank == 0
+                else None)
+    dist.gather(local, gathered, dst=0)
+    del local
+    if rank == 0:
+        ref = plain_butterfly(fused, gathered)
+        res["grad_err"], res["grad_err_over_tol"] = close_per_element(
+            torch, combined, ref, 1e-5)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def adasum_phase(torch, card):
+    """The ``adasum`` phase (module doc). Returns rank 0's launches of B4
+    and B5 over its steps, or zeros on one card."""
+    cards = torch.cuda.device_count()
+    n = 1 << (min(4, cards).bit_length() - 1)
+    if n < 2:
+        log("adasum", "one card: Adasum of a single contribution is that "
+                      "contribution (horovod_tpu/collectives/adasum.py:"
+                      "108-117), so in a world of one the butterfly and its "
+                      "kernels do not run; the phase needs 2 or more cards")
+        return {"norms_dot": 0, "combine": 0}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
+                   HOROVOD_NUM_PROCESSES=str(n))
+        procs, logs = [], []
+        try:
+            for r in range(n):
+                logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--adasum-worker", d],
+                    env=dict(env, HOROVOD_PROCESS_ID=str(r)),
+                    stdout=logs[-1], stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + 900
+            for r, p in enumerate(procs):
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                if rc != 0:
+                    with open(os.path.join(d, f"rank{r}.log")) as f:
+                        tail = f.read()[-4000:]
+                    raise AssertionError(f"adasum rank {r} exited {rc}:\n"
+                                         f"{tail}")
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    levels = n.bit_length() - 1
+    for res in ranks:
+        if res["launches"] != [[levels, levels]] * 3:
+            raise AssertionError(f"rank {res['rank']}: B4/B5 launches per "
+                                 f"step {res['launches']}, expected "
+                                 f"{levels} each")
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"non-finite loss: {res['losses']}")
+        if res["params_differing_from_rank0"]:
+            raise AssertionError(f"rank {res['rank']}: "
+                                 f"{res['params_differing_from_rank0']} "
+                                 "parameters differ from rank 0's")
+    r0 = ranks[0]
+    if not r0["grad_err_over_tol"] <= 1.0:
+        raise AssertionError(f"combined gradient off the plain butterfly: "
+                             f"{r0['grad_err_over_tol']:.3f} of tolerance")
+    log("adasum", f"{n} ranks over NCCL, DistributedOptimizer(AdamW, "
+                  f"op=Adasum), 2-layer llama3_8b width: losses "
+                  f"{r0['losses']}; step {r0['times'][1] * 1e3:.1f} ms "
+                  f"(first {r0['times'][0] * 1e3:.1f} ms, profiled "
+                  f"{r0['times'][2] * 1e3:.1f} ms); "
+                  f"{2 * 2048 / r0['times'][1]:.0f} tokens/s/GPU; B4/B5 "
+                  f"launches per step {r0['launches'][0]}; parameters "
+                  f"bit-identical on every rank; step-1 combined gradient "
+                  f"vs plain butterfly max err {r0['grad_err']:.2e}, err/tol "
+                  f"{r0['grad_err_over_tol']:.3f} (tolerance 1e-5 (|ref| + "
+                  f"RMS(ref)) per element); peak "
+                  f"{r0['peak_gb']:.1f} GB; on {card}")
+    log("adasum", f"rank 0, step 3 under torch.profiler: {r0['profile']}")
+    return {"norms_dot": sum(x[0] for x in r0["launches"]),
+            "combine": sum(x[1] for x in r0["launches"])}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -303,6 +663,7 @@ def main():
     from horovod_tpu_torch.models import llama as hvd_llama
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
     from horovod_tpu_torch.train import (create_train_state, make_train_step,
                                          next_token_loss)
 
@@ -321,6 +682,7 @@ def main():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
+    adasum_launches = adasum_phase(torch, card)
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -409,15 +771,55 @@ def main():
                    f"{times[-1] * 1e3:.1f} ms on the host clock: "
                    f"{device_breakdown(prof, times[-1])}")
     hvd.shutdown()
+    del state, step, opt, model, tokens, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grad_model = hvd_llama.Llama(cfg, seed=0)
+    a = flat_gradient(torch, grad_model, cfg, 1, next_token_loss)
+    b = flat_gradient(torch, grad_model, cfg, 2, next_token_loss)
+    del grad_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_errs, stats, out = fused_check(fused, torch, "main path", a, b)
+    edge_errs = fused_edge_cases(fused, torch)
+    torch.cuda.synchronize()
+    log("adasum-kernels", f"agree with plain: main path (flat gradients of "
+                          f"two batches, n = {a.numel():,}) {fmt(fused_errs)}"
+                          f"; edge cases {fmt(edge_errs)}; coefficients "
+                          f"ca {stats[3].item():.6f} cb {stats[4].item():.6f}"
+                          f" (tolerances: B4 sums 1e-6 x the sums of their "
+                          f"terms' magnitudes, coefficients 1e-5 relative, "
+                          f"B5 2^-22 (|ca a| + |cb b|) per element)")
+    fms, flib = time_fused(fused, torch, a, b, stats, out)
+    fbounds = {name: fused_bound(name, a.numel()) for name in fused.KERNELS}
+    yardstick = {"norms_dot": "3 x torch.dot",
+                 "combine": "torch.add(a.mul(ca), b, alpha=cb)"}
+    for name in fused.KERNELS:
+        log("adasum-kernels", f"{name}: {fms[name][0]:.3f} ms (bound "
+                              f"{fbounds[name][0]:.3f} ms by "
+                              f"{fbounds[name][1]}; plain {fms[name][1]:.3f} "
+                              f"ms; {yardstick[name]} {flib[name]:.3f} ms); "
+                              f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+                              f" GB; on {card}")
+    del a, b, out, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs.update(fused_errs)
+    ms.update(fms)
+    library.update(flib)
+    bounds.update(fbounds)
+    launches.update(adasum_launches)
 
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": errs[name][0], "err_over_tol": errs[name][1],
         "ms": ms[name][0],
         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": library[name],
-    } for name in fa.KERNELS]
+    } for name in [*fa.KERNELS, *fused.KERNELS]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -427,4 +829,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--adasum-worker"]:
+        sys.exit(adasum_worker(sys.argv[2]))
     sys.exit(main())

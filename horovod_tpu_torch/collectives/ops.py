@@ -11,8 +11,9 @@ walking the tensors in REVERSE order (:func:`plan_buckets`, the reference's
 ``_fused_reduce`` packing), so the last layer's gradients — the first that
 backward produces — fill the first bucket. One all-reduce per bucket.
 
-This slice ports ``allreduce``, ``grouped_allreduce``, ``broadcast`` and
-``barrier``; the other collectives come with a later slice.
+This module ports ``allreduce``, ``grouped_allreduce``, ``broadcast`` and
+``barrier``; ``op=Adasum`` routes to the butterfly of ``adasum.py``. The
+other collectives come with a later slice.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ Average = "average"
 Min = "min"
 Max = "max"
 Product = "product"
+Adasum = "adasum"
 
 _DIST_OP = {
     Sum: dist.ReduceOp.SUM,
@@ -145,7 +147,14 @@ def allreduce(tensor: torch.Tensor, op: str = Average, *,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """All-reduce one tensor across the ranks of ``process_set`` (parity:
-    ``hvd.allreduce``). The input is left untouched."""
+    ``hvd.allreduce``). The input is left untouched. ``op=Adasum`` routes to
+    :func:`~horovod_tpu_torch.collectives.adasum.adasum_allreduce`."""
+    if op == Adasum:
+        from .adasum import adasum_allreduce
+        return adasum_allreduce(tensor, process_set=process_set,
+                                compression=compression,
+                                prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor)
     wire, cctx = compression.compress(tensor)
     if wire is tensor:
         wire = tensor.clone()
@@ -191,7 +200,15 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: str = Average, *,
                       prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0) -> List[torch.Tensor]:
     """All-reduce a list of tensors through the fusion buckets sized by
-    ``HOROVOD_FUSION_THRESHOLD`` (parity: ``hvd.grouped_allreduce``)."""
+    ``HOROVOD_FUSION_THRESHOLD`` (parity: ``hvd.grouped_allreduce``).
+    ``op=Adasum`` combines all of them as one flat vector (one coefficient
+    pair per butterfly level), as the JAX package does."""
+    if op == Adasum:
+        from .adasum import adasum_allreduce
+        return adasum_allreduce(list(tensors), process_set=process_set,
+                                compression=compression,
+                                prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor)
     if op not in _DIST_OP:
         raise ValueError(f"unsupported reduce op: {op}")
     return _fused_reduce(list(tensors), compression, op, process_set,

@@ -20,6 +20,9 @@ Places where a port of the JAX model goes wrong, kept as it computes:
 - A flax ``nn.Dense(dtype=bf16)`` casts both input and kernel to bf16 and
   returns bf16.
 - The embedding table is f32; rows are gathered, then cast.
+- The LM head multiplies bf16 operands into f32 logits with no bf16
+  rounding of the product (``preferred_element_type=f32``): a bf16
+  ``F.linear`` cast to f32 would round each logit to 2^-9.
 """
 
 from __future__ import annotations
@@ -90,6 +93,56 @@ class Dense(nn.Linear):
     def forward(self, x):
         return F.linear(x.to(self.compute_dtype),
                         self.weight.to(self.compute_dtype))
+
+
+class _HeadProduct(torch.autograd.Function):
+    """``x [N, D] @ w[V, D]^T`` with bf16 (compute-dtype) operands and f32
+    accumulation into f32 logits, with no rounding of the product: the JAX
+    head's ``einsum(..., preferred_element_type=f32)``. ``w`` is the f32
+    parameter; the cast to the compute dtype happens inside.
+
+    Backward follows JAX's VJP of that einsum: each product accumulates in
+    f32 (``out_dtype``, so cuBLAS cannot round partial sums to bf16) and is
+    rounded once, dx to the compute dtype and dW to the compute dtype and
+    back to f32. JAX multiplies the f32 cotangent by the bf16 operand; on
+    the card the cotangent is rounded to bf16 first, so both backward
+    products stay on bf16 tensor cores (ROADMAP, section C). On the CPU the
+    products are f32 products of the same operands, the same function up to
+    summation order."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype):
+        wc = w.to(dtype)
+        ctx.save_for_backward(x, wc)
+        if x.is_cuda:
+            return torch.mm(x, wc.t(), out_dtype=torch.float32)
+        return x.float() @ wc.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wc = ctx.saved_tensors
+        if g.is_cuda:
+            g = g.to(wc.dtype)
+            dx = torch.mm(g, wc, out_dtype=torch.float32)
+            dw = torch.mm(g.t(), x, out_dtype=torch.float32)
+        else:
+            dx = g @ wc.float()
+            dw = g.t() @ x.float()
+        return dx.to(x.dtype), dw.to(wc.dtype).float(), None
+
+
+class LMHead(Dense):
+    """The untied LM head: f32 logits from the compute-dtype product
+    accumulated in f32 (:class:`_HeadProduct`); in an f32 configuration a
+    plain f32 product."""
+
+    def forward(self, x):
+        if self.compute_dtype == torch.float32:
+            return super().forward(x).float()
+        lead = x.shape[:-1]
+        x2d = x.to(self.compute_dtype).reshape(-1, x.shape[-1])
+        return _HeadProduct.apply(x2d, self.weight, self.compute_dtype) \
+            .view(*lead, -1)
 
 
 class RMSNorm(nn.Module):
@@ -195,7 +248,7 @@ class Llama(nn.Module):
         self.blocks = nn.ModuleList(Block(c, device)
                                     for _ in range(c.n_layers))
         self.final_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
-        self.lm_head = Dense(c.dim, c.vocab_size, c.dtype, device)
+        self.lm_head = LMHead(c.dim, c.vocab_size, c.dtype, device)
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
             self.embedding.normal_(0.0, 0.02, generator=gen)
@@ -210,10 +263,4 @@ class Llama(nn.Module):
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         for block in self.blocks:
             x = block(x, positions)
-        x = self.final_norm(x)
-        # The JAX head multiplies bf16 inputs with f32 accumulation into f32
-        # logits. torch's f32-output bf16 product (mm's out_dtype) has no
-        # autograd formula, so the head's bf16 product is cast to f32: the
-        # logits carry one bf16 rounding (relative 2^-9) that the JAX logits
-        # do not. In f32 configurations both are exact f32 products.
-        return self.lm_head(x).float()
+        return self.lm_head(self.final_norm(x))

@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 #: C signature, ``(restype, argtypes)``, of each entry point in
-#: ``csrc/flash_attention.cu``.
+#: ``csrc/flash_attention.cu`` and ``csrc/fused.cu``.
 _SIGNATURES = {
     # dtype, D, q, k, v, bias, o, m, l, B, H, Tq, Tk, scale, causal, stream
     "hvd_fa_fwd": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "hvd_fa_bwd_dkv": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _I, _I, _I, _I, _F, _I, _P]),
     "hvd_error_string": (ctypes.c_char_p, [_I]),
+    # a, b, n, eps, partials, max_blocks, stats, stream
+    "hvd_adasum_norms_dot": (_I, [_P, _P, _L, _F, _P, _I, _P, _P]),
+    # a, b, stats, out, n, max_blocks, stream
+    "hvd_adasum_combine": (_I, [_P, _P, _P, _P, _L, _I, _P]),
 }
 
 _lib = None

@@ -13,15 +13,23 @@ gradients back and applies the wrapped optimizer.
 
 The all-reduces go through ``torch.distributed`` in every initialised world,
 a world of one rank included.
+
+With ``op=Adasum`` all gradients form ONE bucket: the JAX result has one
+``(ca, cb)`` pair per butterfly level over the concatenation of every
+gradient, not one per bucket or per tensor. The hooks then only count, and
+``synchronize()`` runs :func:`~horovod_tpu_torch.collectives.adasum.
+adasum_allreduce` over all gradients once they are ready.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional
 
 import torch
 
 from ..collectives import ops as _ops
+from ..collectives.adasum import adasum_allreduce
 from ..collectives.compression import Compression, Compressor
 from ..core import context_api as _ctx
 from ..core.config import resolve_fusion_threshold_bytes
@@ -35,6 +43,20 @@ class _Bucket:
         self.params = params
         self.pending = len(params)  # gradients not yet ready this step
         self.inflight = None        # (handle, [(param, wire shape, ctx)])
+
+
+def _weak_hook(opt):
+    """The gradient hook of ``opt``, holding it weakly. A parameter keeps its
+    hooks in the autograd engine, out of the garbage collector's sight, so a
+    hook that held the optimizer would keep it, its state and every
+    parameter alive for the rest of the process."""
+    ref = weakref.ref(opt)
+
+    def hook(p):
+        live = ref()
+        if live is not None:
+            live._hook(p)
+    return hook
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -69,14 +91,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._postscale = 1.0
         ordered = [p for g in self.param_groups for p in g["params"]
                    if p.requires_grad]
-        wire = [compression.wire_dtype_for(p.dtype) for p in ordered]
-        sizes = [(p.numel() * w.itemsize, w) for p, w in zip(ordered, wire)]
-        plan = _ops.plan_buckets(sizes, resolve_fusion_threshold_bytes())
-        self._buckets = [_Bucket([ordered[i] for i in idxs]) for idxs in plan]
+        if op == _ops.Adasum:
+            self._buckets = [_Bucket(ordered)]
+        else:
+            wire = [compression.wire_dtype_for(p.dtype) for p in ordered]
+            sizes = [(p.numel() * w.itemsize, w)
+                     for p, w in zip(ordered, wire)]
+            plan = _ops.plan_buckets(sizes, resolve_fusion_threshold_bytes())
+            self._buckets = [_Bucket([ordered[i] for i in idxs])
+                             for idxs in plan]
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
         self._passes = {p: 0 for p in ordered}
         for p in ordered:
-            p.register_post_accumulate_grad_hook(self._hook)
+            p.register_post_accumulate_grad_hook(_weak_hook(self))
 
     @property
     def buckets(self) -> List[List[torch.nn.Parameter]]:
@@ -90,7 +117,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._passes[p] = 0
         bucket = self._bucket_of[p]
         bucket.pending -= 1
-        if bucket.pending == 0:
+        if bucket.pending == 0 and self._op != _ops.Adasum:
             self._launch(bucket)
 
     def _launch(self, bucket: _Bucket) -> None:
@@ -109,6 +136,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         back. A bucket whose hooks did not all fire (a parameter unused this
         step) is launched here with zero gradients, so every rank issues the
         same collectives."""
+        if self._op == _ops.Adasum:
+            return self._synchronize_adasum()
         for bucket in self._buckets:
             if bucket.inflight is None:
                 for p in bucket.params:
@@ -128,12 +157,33 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             bucket.inflight = None
             bucket.pending = len(bucket.params)
 
+    def _synchronize_adasum(self) -> None:
+        """Adasum over every gradient as one flat vector. The ``1/k`` of
+        ``backward_passes_per_step = k`` scales each gradient first, as the
+        JAX optimizer scales its accumulated gradients before reducing."""
+        (bucket,) = self._buckets
+        grads = []
+        for p in bucket.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if self._prescale != 1.0:
+                p.grad.mul_(self._prescale)
+            grads.append(p.grad)
+        reduced = adasum_allreduce(grads, process_set=self._process_set,
+                                   compression=self._compression)
+        for p, g in zip(bucket.params, reduced):
+            if g.data_ptr() != p.grad.data_ptr():
+                p.grad.copy_(g)
+        bucket.pending = len(bucket.params)
+
     def step(self, closure=None):
         self.synchronize()
         return super(self.__class__, self).step(closure)
 
     def zero_grad(self, set_to_none: bool = True):
-        if any(b.inflight is not None for b in self._buckets):
+        if any(b.inflight is not None
+               or (self._op == _ops.Adasum and b.pending == 0)
+               for b in self._buckets):
             raise AssertionError(
                 "optimizer.zero_grad() was called after loss.backward() but "
                 "before optimizer.step() or optimizer.synchronize()")

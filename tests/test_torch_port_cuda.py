@@ -12,6 +12,15 @@
   bf16 ulp, at most 2^-7 of the magnitude, apart; the RMS term covers
   elements near zero) and r = 5e-5 for f32 outputs (f32 summation-order
   differences are near 1e-6 of the summed magnitudes).
+- The Adasum kernels (B4 the three sums, B5 the combine) against their
+  plain versions on edge cases: n = 65,536 and 1,000,003, a = 0, a = b,
+  orthogonal vectors, and slices misaligned by the same and by different
+  offsets (tolerances in the test).
+- The bf16 LM head's cuBLAS products against its CPU version.
+- ``DistributedOptimizer(AdamW, op=Adasum)`` over NCCL on 2 and on 4 GPUs
+  (``-k adasum``): log2(n) launches of B4 and B5 per step, ranks
+  bit-identical, and rank 0's first combined gradient held to the plain
+  butterfly of the gathered local gradients.
 - Data-parallel training across every GPU of the machine over NCCL, for two
   steps, with AdamW (lr 1e-4, weight decay 1e-4, the main path's settings)
   and with SGD and momentum. The ranks end bit-identical, and they are held
@@ -119,12 +128,113 @@ def test_kernels_match_plain_versions(cuda, case):
         assert float(o[lengths.index(0)].abs().max()) == 0.0
 
 
+def _fused_operands(case, gen):
+    """(a, b) of one B4/B5 edge case, f32 on the card."""
+    mk = lambda n: torch.randn(n, generator=gen, device="cuda")
+    if case == "n65536":
+        return mk(65536), mk(65536)
+    if case == "ragged-1000003":
+        return mk(1_000_003), mk(1_000_003)
+    if case == "a-zero":
+        return torch.zeros(70_001, device="cuda"), mk(70_001)
+    if case == "a-equals-b":
+        a = mk(70_001)
+        return a, a.clone()
+    if case == "orthogonal":  # disjoint supports: a.b = 0
+        a, b = mk(70_000), mk(70_000)
+        a[35_000:] = 0
+        b[:35_000] = 0
+        return a, b
+    if case == "misaligned-same-offset":  # 4 bytes past a 16-byte boundary
+        return mk(300_001)[1:], mk(300_001)[1:]
+    if case == "misaligned-other-offset":  # the scalar path
+        return mk(300_003)[1:-1], mk(300_004)[3:]
+    raise ValueError(case)
+
+
+FUSED_CASES = ("n65536", "ragged-1000003", "a-zero", "a-equals-b",
+               "orthogonal", "misaligned-same-offset",
+               "misaligned-other-offset")
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_adasum_kernels_match_plain_versions(cuda, case):
+    """B4's three sums within 1e-6 of the sums of their terms' magnitudes
+    (the plain version sums in f64; the kernel in f64 in another order),
+    its coefficients within 1e-5 relative, and B5, given the same
+    coefficients, per element within 2^-22 (|ca a| + |cb b|): both sides
+    round ca a, cb b and their sum once each. The combine is symmetric
+    bit for bit, and in place gives the same values."""
+    from horovod_tpu_torch.ops import fused
+    a, b = _fused_operands(case, torch.Generator(device="cuda").manual_seed(0))
+    before = {k: f.launches for k, f in fused.KERNELS.items()}
+    stats = fused._norms_dot_kernel(a, b)
+    plain = fused._plain_norms_dot(a, b)
+    a64, b64 = a.double(), b.double()
+    for got, want, (x, y) in zip(stats[:3], plain,
+                                 ((a64, b64), (a64, a64), (b64, b64))):
+        assert abs(got.item() - want.item()) <= 1e-6 * (x * y).abs().sum()
+    ca, cb = fused.adasum_coefficients(*plain)
+    torch.testing.assert_close(stats[3:], torch.stack([ca, cb]), rtol=1e-5,
+                               atol=0)
+    out = fused._combine_kernel(a, b, stats)
+    ref = fused._plain_scale_add(a, b, stats[3], stats[4])
+    tol = 2 ** -22 * ((stats[3] * a).abs() + (stats[4] * b).abs())
+    assert ((out - ref).abs() <= tol).all()
+    got = fused.fused_combine(a, b)
+    assert torch.equal(got, fused.fused_combine(b, a))
+    if case == "a-zero":
+        assert torch.equal(got, b)
+    if case == "orthogonal":
+        assert torch.equal(got, a + b)
+    if case == "a-equals-b":
+        torch.testing.assert_close(got, a, rtol=1e-6, atol=1e-6)
+    work = a.clone()
+    fused.fused_combine(work, b, out=work)
+    assert torch.equal(work, got)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in fused.KERNELS.items()} == \
+        {"norms_dot": 4, "combine": 4}
+
+
+def test_bf16_lm_head_on_the_card_matches_the_cpu(cuda):
+    """The head's cuBLAS products against its CPU version (f32 products of
+    the same operands). The card rounds the cotangent to bf16 before its
+    backward products, so the CPU side is given that rounded cotangent:
+    then only the summation order differs. Logits per element within 1e-5
+    (|ref| + RMS); the bf16 gradients within one bf16 ulp, 2^-7 (|ref| +
+    RMS), as two roundings of nearly equal f32 values."""
+    from horovod_tpu_torch.models.llama import LMHead
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(64, 512, generator=gen).to(torch.bfloat16)
+    g = torch.randn(64, 1000, generator=gen).to(torch.bfloat16).float()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        head = LMHead(512, 1000, torch.bfloat16, dev)
+        with torch.no_grad():
+            head.weight.copy_(torch.randn(1000, 512, generator=torch.Generator(
+                ).manual_seed(1)) / 20)
+        xd = x.detach().to(dev).requires_grad_()
+        logits = head(xd)
+        logits.backward(g.to(dev))
+        res[dev] = [t.detach().float().cpu() for t in
+                    (logits, xd.grad, head.weight.grad)]
+        assert logits.dtype == torch.float32
+    for what, got, ref in zip(("logits", "dx", "dW"), res["cuda"],
+                              res["cpu"]):
+        r = 1e-5 if what == "logits" else 2 ** -7
+        tol = r * (ref.abs() + ref.square().mean().sqrt())
+        ratio = ((got - ref).abs() / tol).max().item()
+        assert ratio <= 1.0, f"{what}: worst err/tol {ratio:.3f}"
+
+
 _WORKER = textwrap.dedent("""
     import sys
     import numpy as np
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.ops import fused
     from horovod_tpu_torch.train import (create_train_state, make_train_step,
                                          next_token_loss)
 
@@ -136,29 +246,41 @@ _WORKER = textwrap.dedent("""
                       n_kv_heads=2, hidden_dim=512, max_seq_len=128,
                       dtype=torch.float32, use_flash=True)
     model = Llama(cfg, seed=rank)  # ranks differ until the broadcast
-    if opt_name == "adamw":  # the main path's optimizer and settings
+    if opt_name == "sgd":
+        inner = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    else:  # the main path's optimizer and settings
         inner = torch.optim.AdamW(model.parameters(), lr=1e-4,
                                   weight_decay=1e-4)
-    else:
-        inner = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-    opt = hvd.DistributedOptimizer(inner,
-                                   named_parameters=model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        inner, named_parameters=model.named_parameters(),
+        op=hvd.Adasum if opt_name == "adasum" else hvd.Average)
     state = create_train_state(model, opt)
     step = make_train_step(model, opt, next_token_loss)
     tokens = torch.randint(0, cfg.vocab_size, (8, 128),
                            generator=torch.Generator().manual_seed(0))
     per = tokens.shape[0] // size
     shard = tokens[rank * per:(rank + 1) * per].to(hvd.device())
-    losses, out = [], {}
+    losses, launches, out = [], [], {}
+    synchronize = opt.synchronize
+
+    def keep_local_grads():  # this rank's gradient, before the reduction
+        for name, p in model.named_parameters():
+            out[f"local{len(losses)}/{name}"] = p.grad.detach().cpu().numpy()
+        synchronize()
+
+    if opt_name == "adasum":
+        opt.synchronize = keep_local_grads
     for s in range(2):
+        fused.reset_launch_counts()
         state, loss = step(state, shard, shard)
         losses.append(loss.item())
+        launches.append([f.launches for f in fused.KERNELS.values()])
         for name, p in model.named_parameters():  # the reduced gradient
             out[f"grad{s}/{name}"] = p.grad.detach().cpu().numpy()
     out.update({k: v.detach().cpu().numpy()
                 for k, v in model.state_dict().items()})
     np.savez(f"{out_dir}/{opt_name}_w{size}_r{rank}.npz",
-             losses=np.asarray(losses), **out)
+             losses=np.asarray(losses), launches=np.asarray(launches), **out)
     hvd.shutdown()
 """)
 
@@ -221,15 +343,21 @@ def test_dp_across_gpus_matches_one_process(cuda, tmp_path, opt_name):
     check_against_one_process(ranks, single, opt_name)
 
 
+def _params(saved):
+    return [k for k in saved if k not in ("losses", "launches")
+            and not k.startswith(("grad", "local"))]
+
+
 def check_against_one_process(ranks, single, opt_name):
     """Hold the ranks of a data-parallel run to each other and to one
     process that trained on the whole batch (module doc)."""
     for other in ranks[1:]:
         for name, w in ranks[0].items():
-            np.testing.assert_array_equal(other[name], w, err_msg=name)
+            if not name.startswith("local"):
+                np.testing.assert_array_equal(other[name], w, err_msg=name)
     dist, n = ranks[0], len(ranks)
     np.testing.assert_allclose(dist["losses"], single["losses"], rtol=1e-5)
-    params = [k for k in single if k != "losses" and not k.startswith("grad")]
+    params = _params(single)
     if opt_name == "sgd":
         for name in params:
             np.testing.assert_allclose(dist[name], single[name], rtol=1e-5,
@@ -280,3 +408,39 @@ def check_against_one_process(ranks, single, opt_name):
         # Near eps each side still takes an AdamW step, at most lr in size.
         assert bound[name] <= 2 * 2 * LR, (name, report)
     assert report["near_eps"] <= 1e-2 * report["elements"], report
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_adasum_across_gpus_matches_plain_butterfly(cuda, tmp_path, n):
+    """``DistributedOptimizer(AdamW, op=Adasum)`` over NCCL on n cards, a
+    different shard per rank: each step launches B4 and B5 log2(n) times
+    per rank, the ranks end bit-identical, and rank 0's first reduced
+    gradient is held to the plain butterfly (``_plain_combine``, on the
+    CPU) of the gathered local gradients, per element within 1e-5 (|ref| +
+    RMS(ref)): the two sides differ only in the order of the f64 sums."""
+    from horovod_tpu_torch.ops import fused
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} GPUs")
+    ranks = run_world(str(tmp_path), n, "cuda", "adasum")
+    levels = n.bit_length() - 1
+    for r in ranks:
+        assert r["launches"].tolist() == [[levels, levels]] * 2
+        assert np.isfinite(r["losses"]).all()
+    for other in ranks[1:]:
+        for name in _params(ranks[0]) + [k for k in ranks[0]
+                                         if k.startswith("grad")]:
+            np.testing.assert_array_equal(other[name], ranks[0][name],
+                                          err_msg=name)
+    names = [k[len("grad0/"):] for k in ranks[0] if k.startswith("grad0/")]
+    vecs = [torch.from_numpy(np.concatenate(
+        [r[f"local0/{k}"].ravel() for k in names])) for r in ranks]
+    d = 1
+    while d < n:
+        vecs = [fused._plain_combine(vecs[i], vecs[i ^ d]) for i in range(n)]
+        d *= 2
+    ref = vecs[0].double()
+    got = torch.from_numpy(np.concatenate(
+        [ranks[0][f"grad0/{k}"].ravel() for k in names])).double()
+    tol = 1e-5 * (ref.abs() + ref.square().mean().sqrt())
+    assert ((got - ref).abs() <= tol).all(), \
+        ((got - ref).abs() / tol).max().item()

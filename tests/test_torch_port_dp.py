@@ -12,11 +12,13 @@
 """
 
 import dataclasses
+import gc
 import os
 import socket
 import subprocess
 import sys
 import textwrap
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -269,16 +271,59 @@ def _grads_after(opt_kwargs, passes, seed=0):
     ({"gradient_predivide_factor": 4.0}, 1, 1.0),
     ({"compression": thvd.Compression.bf16}, 1, 1.0),
     ({"op": thvd.Sum}, 1, 1.0),
+    ({"op": thvd.Adasum}, 1, 1.0),
+    ({"op": thvd.Adasum, "backward_passes_per_step": 2}, 2, 0.5),
 ])
 def test_optimizer_reduction_options_in_a_world_of_one(opt_kwargs, passes,
                                                        factor):
     """Each option's algebra in a world of one, where the reduced gradient
     must be the local one: k local passes divided by k, the predivide split
-    netting an average, bf16 on the wire rounding to within 2^-8."""
+    netting an average, bf16 on the wire rounding to within 2^-8, and Adasum
+    of one contribution being that contribution."""
     got, plain = _grads_after(opt_kwargs, passes)
     tol = 2 ** -8 if "compression" in opt_kwargs else 1e-6
     for g, p in zip(got, plain):
         torch.testing.assert_close(g, p * factor, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("op", [thvd.Average, thvd.Adasum])
+def test_optimizer_is_freed_with_its_last_reference(op):
+    """The gradient hooks hold the optimizer weakly: once the caller drops
+    it, its state and parameters go (a 1.5 B-parameter model's AdamW state
+    is 12 GB), and a later backward is not reduced by it."""
+    thvd.init(device="cpu")
+    try:
+        model = torch.nn.Linear(8, 3)
+        opt = thvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=0.1), op=op)
+        model(torch.randn(4, 8)).sum().backward()
+        opt.step()
+        ref = weakref.ref(opt)
+        del opt
+        gc.collect()
+        assert ref() is None
+        model(torch.randn(4, 8)).sum().backward()  # the dead hook is inert
+    finally:
+        thvd.shutdown()
+
+
+@pytest.mark.parametrize("op", [thvd.Average, thvd.Adasum])
+def test_zero_grad_between_backward_and_step_raises(op):
+    """Gradients that are complete but not yet reduced (an all-reduce in
+    flight, or Adasum's one bucket ready) must not be dropped."""
+    thvd.init(device="cpu")
+    try:
+        model = torch.nn.Linear(8, 3)
+        opt = thvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), op=op)
+        opt.zero_grad()
+        model(torch.randn(4, 8)).sum().backward()
+        with pytest.raises(AssertionError, match="zero_grad"):
+            opt.zero_grad()
+        opt.step()
+        opt.zero_grad()
+    finally:
+        thvd.shutdown()
 
 
 def test_adamw_weight_decay_matches_optax_only_when_set():

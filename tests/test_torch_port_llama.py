@@ -187,9 +187,9 @@ def test_resolve_flash_order(monkeypatch):
 
 def test_bf16_embedding_and_lm_head_match_jax_casts():
     """The f32 table is gathered, then cast to bf16; the LM head takes bf16
-    inputs and returns f32 logits. torch has no f32-output bf16 product with
-    autograd, so the port's logits carry one bf16 rounding: within 2^-8 of
-    the largest logit of JAX's f32-accumulated head."""
+    inputs and returns f32 logits accumulated in f32 with no bf16 rounding,
+    as JAX's head: per element within 1e-5 (|ref| + RMS(ref)), summation
+    order only."""
     rng = np.random.RandomState(8)
     table = rng.randn(256, 64).astype(np.float32)
     tokens = rng.randint(0, 256, (2, 5))
@@ -212,5 +212,5 @@ def test_bf16_embedding_and_lm_head_match_jax_casts():
         logits = model.lm_head(torch.from_numpy(x)).float()
     assert logits.dtype == torch.float32
     ref = np.asarray(want)
-    np.testing.assert_allclose(logits.numpy(), ref,
-                               atol=2 ** -8 * np.abs(ref).max())
+    tol = 1e-5 * (np.abs(ref) + np.sqrt(np.mean(ref.astype(np.float64) ** 2)))
+    assert (np.abs(logits.numpy() - ref) <= tol).all()

@@ -7,6 +7,7 @@ run on the card unless the caller asks for the CPU.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,6 +39,10 @@ def _imported_roots(path: Path):
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 10
+    pkg = REPO / "horovod_tpu_torch"
+    for module in ("collectives/adasum.py", "ops/fused.py",
+                   "ops/flash_attention.py"):
+        assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
            for f in files}
@@ -61,6 +66,23 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_build_takes_each_kernel_source_and_entry_point_once():
+    """``ops/_build.py`` compiles every ``csrc/*.cu`` in one ``nvcc`` call:
+    the flash-attention kernels and the Adasum kernels, and nothing else.
+    Each C entry point it binds is defined in exactly one source (one
+    shared library cannot hold two definitions of one symbol)."""
+    from horovod_tpu_torch.ops import _build
+    assert [f.name for f in _build._sources()] == ["flash_attention.cu",
+                                                   "fused.cu"]
+    text = {f.name: f.read_text() for f in _build._sources()}
+    for name in _build._SIGNATURES:
+        defined = [f for f, src in text.items()
+                   if re.search(rf"^\S.*\b{name}\(", src, re.M)]
+        assert len(defined) == 1, (name, defined)
+    assert re.search(r"^int hvd_adasum_norms_dot\(", text["fused.cu"], re.M)
+    assert re.search(r"^int hvd_adasum_combine\(", text["fused.cu"], re.M)
+
+
 def test_init_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -79,8 +101,11 @@ def test_cpu_world_of_one_answers_like_the_reference():
         assert thvd.nccl_built() == torch.distributed.is_nccl_available()
         x = torch.arange(6.0)
         for op, want in ((thvd.Sum, x), (thvd.Average, x), (thvd.Min, x),
-                         (thvd.Max, x), (thvd.Product, x)):
+                         (thvd.Max, x), (thvd.Product, x), (thvd.Adasum, x)):
             assert torch.equal(thvd.allreduce(x, op), want)
+        # Adasum of one contribution is that contribution, scaled.
+        assert torch.equal(thvd.allreduce(x, thvd.Adasum, prescale_factor=2.0,
+                                          postscale_factor=3.0), 6 * x)
         y = thvd.allreduce(x, thvd.Average, prescale_factor=2.0,
                            postscale_factor=0.5)
         assert torch.equal(y, x)
