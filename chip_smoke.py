@@ -25,11 +25,15 @@ Phases, one line each; any failure raises and the script exits nonzero:
    anything on the cards.
 4. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
    against its plain PyTorch version on the same inputs: at the training
-   shape (B=2, T=2048, H=32, D=128, causal) in bf16 and again in f32, and at
-   a small f32 non-causal case with a key-padding bias and a ragged T=1000
-   (D=64). Times each kernel at the bf16 training shape beside its bound,
-   its plain version and ``F.scaled_dot_product_attention`` (the yardstick;
-   the port never calls it).
+   shape (B=2, T=2048, H=32, D=128, causal) in bf16 (B1 and B3 on the
+   tensor cores) and again in f32 (the CUDA-core kernels), at a small f32
+   non-causal case with a key-padding bias and a ragged T=1000 (D=64), and
+   at a small bf16 non-causal case (D=64, Tq=100, Tk=300, a key-padding
+   bias, one batch row that sees no key: its l and o must be exactly 0).
+   Times each kernel at the bf16 training shape beside its bound, its
+   achieved TFLOP/s and share of the bound, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
+   it).
 5. model   — a small f32 Llama (head dim 64) on the card: logits and
    gradients with flash on (the kernels) agree with flash off.
 6. train   — the main path: ``init()`` (an NCCL world of one), the
@@ -67,6 +71,10 @@ different orders, and round once to the output type.
   differences over at most 2048 terms are near 1e-6 of the summed
   magnitudes; 5e-5 leaves a margin of more than ten.
 
+The bf16 B1 and B3 feed P and dS to their second products as bf16 hi + lo
+pairs, about 16 bits, so their sums stay within about 2^-16 of the f32 ones
+and the two bounds above hold for them too.
+
 The Adasum kernels:
 
 - B4's three sums within 1e-6 of the sums of their terms' magnitudes
@@ -96,9 +104,11 @@ H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 FA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
+#: The bf16 B1 and B3, which the main path runs, on the tensor cores.
+SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention_sm90.cuh"
 FUSED_SOURCE = "horovod_tpu_torch/ops/csrc/fused.cu"
-SOURCES = {"fa_fwd": FA_SOURCE, "fa_bwd_dq": FA_SOURCE,
-           "fa_bwd_dkv": FA_SOURCE, "norms_dot": FUSED_SOURCE,
+SOURCES = {"fa_fwd": SM90_SOURCE, "fa_bwd_dq": FA_SOURCE,
+           "fa_bwd_dkv": SM90_SOURCE, "norms_dot": FUSED_SOURCE,
            "combine": FUSED_SOURCE}
 REPLACES = {"fa_fwd": "horovod_tpu/ops/flash_attention.py:57",
             "fa_bwd_dq": "horovod_tpu/ops/flash_attention.py:323",
@@ -135,14 +145,20 @@ def time_ms(fn, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def fa_flops(name, B, H, Tq, Tk, D, causal):
+    """Operations of a flash kernel's products over the visible (q, k)
+    pairs, 2 a multiply-add."""
+    pairs = (sum(min(Tk, t + 1) for t in range(Tq)) if causal
+             else Tq * Tk)
+    return 2 * PRODUCTS[name] * pairs * D * B * H
+
+
 def bound(name, B, H, Tq, Tk, D, causal, itemsize):
     """Least time (ms) the card needs for the kernel's work on these shapes:
     the larger of its operations over the peak rate of the input type and
     its bytes (each input read once, each output written once) over the
     memory rate."""
-    pairs = (sum(min(Tk, t + 1) for t in range(Tq)) if causal
-             else Tq * Tk)
-    flops = 2 * PRODUCTS[name] * pairs * D * B * H
+    flops = fa_flops(name, B, H, Tq, Tk, D, causal)
     rows = B * H * D * itemsize
     stats = B * H * Tq * 4
     if name == "fa_fwd":
@@ -170,8 +186,8 @@ def check(what, a, ref, dtype):
     worst = int(ratio.argmax())
     if not ratio.max().item() <= 1.0:
         raise AssertionError(
-            f"{what}: |kernel - plain| = {err.view(-1)[worst].item():.3e} at "
-            f"plain = {ref.view(-1)[worst].item():.3e} exceeds "
+            f"{what}: |kernel - plain| = {err.reshape(-1)[worst].item():.3e} at "
+            f"plain = {ref.reshape(-1)[worst].item():.3e} exceeds "
             f"{r:.3g} * (|plain| + RMS {rms:.3e})")
     return err.max().item(), ratio.max().item()
 
@@ -199,6 +215,11 @@ def kernel_case(fa, torch, *, B, Tq, Tk, H, D, dtype, causal, lengths,
     errs = {"fa_fwd": worst(check("B1 o", o, ro, tag),
                             check("B1 m", m, rm, "f32"),
                             check("B1 l", l, rl, "f32"))}
+    if lengths is not None and 0 in lengths:
+        row = list(lengths).index(0)
+        if l[row].abs().max().item() != 0.0 or o[row].abs().max().item() != 0.0:
+            raise AssertionError("B1: a row that sees no key must get l = 0 "
+                                 "and output 0")
     dsum = fa._row_dsum(do, o)
     args = (q, k, v, do, m, l, dsum, bias)
     dq = fa.fa_bwd_dq(*args, **kw)
@@ -218,12 +239,12 @@ def time_kernels(fa, torch, args, kw):
     import torch.nn.functional as F
     q, k, v, do, m, l, dsum, bias = args
     ms = {
-        "fa_fwd": (time_ms(lambda: fa.fa_fwd(q, k, v, bias, **kw)),
+        "fa_fwd": (time_ms(lambda: fa.fa_fwd(q, k, v, bias, **kw), 20),
                    time_ms(lambda: fa._reference_partial(q, k, v, bias,
                                                          **kw), 2)),
         "fa_bwd_dq": (time_ms(lambda: fa.fa_bwd_dq(*args, **kw)),
                       time_ms(lambda: fa._plain_bwd_dq(*args, **kw), 2)),
-        "fa_bwd_dkv": (time_ms(lambda: fa.fa_bwd_dkv(*args, **kw)),
+        "fa_bwd_dkv": (time_ms(lambda: fa.fa_bwd_dkv(*args, **kw), 20),
                        time_ms(lambda: fa._plain_bwd_dkv(*args, **kw), 2)),
     }
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -692,19 +713,26 @@ def main():
     small_errs, _, _ = kernel_case(
         fa, torch, B=2, Tq=1000, Tk=1000, H=4, D=64, dtype=torch.float32,
         causal=False, lengths=[1000, 613], seed=1)
+    small_bf16_errs, _, _ = kernel_case(
+        fa, torch, B=2, Tq=100, Tk=300, H=4, D=64, dtype=torch.bfloat16,
+        causal=False, lengths=[217, 0], seed=2)
     fmt = lambda e: {n: f"max err {err:.2e}, err/tol {ratio:.3f}"
                      for n, (err, ratio) in e.items()}
     log("kernels", f"agree with plain: training shape bf16 {fmt(errs)}; "
                    f"training shape f32 {fmt(f32_errs)}; small "
-                   f"f32/bias/ragged {fmt(small_errs)}")
+                   f"f32/bias/ragged {fmt(small_errs)}; small bf16/bias/"
+                   f"ragged/no-key row {fmt(small_bf16_errs)}")
     ms, library = time_kernels(fa, torch, args, kw)
     bounds = {name: bound(name, 2, 32, 2048, 2048, 128, True, 2)
               for name in fa.KERNELS}
     for name in fa.KERNELS:
-        log("kernels", f"{name}: {ms[name][0]:.3f} ms (bound "
-                       f"{bounds[name][0]:.4f} ms by {bounds[name][1]}; "
+        tflops = fa_flops(name, 2, 32, 2048, 2048, 128, True) / (
+            ms[name][0] * 1e-3) / 1e12
+        log("kernels", f"{name}: {ms[name][0]:.4f} ms, {tflops:.1f} TFLOP/s, "
+                       f"{bounds[name][0] / ms[name][0]:.1%} of its bound "
+                       f"({bounds[name][0]:.4f} ms by {bounds[name][1]}); "
                        f"plain {ms[name][1]:.3f} ms; library "
-                       f"{library[name]:.3f} ms) on {card}")
+                       f"{library[name]:.4f} ms; on {card}")
     del args
     torch.cuda.empty_cache()
 

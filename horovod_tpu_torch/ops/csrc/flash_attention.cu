@@ -1,25 +1,33 @@
 // Flash attention for Hopper: forward (B1), dQ (B2) and dK/dV (B3) passes.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
-//   B1 fa_fwd_kernel      <- _fa_kernel          (online-softmax forward, emits o, m, l)
-//   B2 fa_bwd_dq_kernel   <- _fa_bwd_dq_kernel   (FA2 dQ pass, k innermost)
-//   B3 fa_bwd_dkv_kernel  <- _fa_bwd_dkv_kernel  (FA2 dK/dV pass, q innermost)
+//   B1 fa_fwd_kernel_sm90 (bf16), fa_fwd_kernel (f32)  <- _fa_kernel
+//      (online-softmax forward, emits o, m, l)
+//   B2 fa_bwd_dq_kernel                                <- _fa_bwd_dq_kernel
+//      (FA2 dQ pass, k innermost)
+//   B3 fa_bwd_dkv_kernel_sm90 (bf16), fa_bwd_dkv_kernel (f32)
+//                                                      <- _fa_bwd_dkv_kernel
+//      (FA2 dK/dV pass, q innermost)
 //
 // What bounds them on the H100 at the Llama-3-8B training shape (B*H = 64,
 // T = 2048, D = 128, causal, bf16): tensor-core operations. B1 does 2 products
-// (~68.7 GFLOP, ~69 us at 989 TFLOP/s dense bf16), B2 3 products (~103 GFLOP,
-// ~104 us), B3 4 products (~137 GFLOP, ~139 us); q, k, v and o are ~34 MB each,
-// ~10 us at 3.35 TB/s, so every pass is compute-bound.
+// (~68.7 GFLOP, ~69.5 us at 989 TFLOP/s dense bf16), B2 3 products (~103
+// GFLOP, ~104 us), B3 4 products (~137 GFLOP, ~139 us); q, k, v and o are ~34
+// MB each, ~10 us at 3.35 TB/s, so every pass is compute-bound.
 //
-// What this design does about it: this first version is the simple, right
-// kernel. It multiplies on the CUDA cores in f32 (no mma/wgmma, no TMA), so
-// it runs far from the tensor-core bound; what it keeps from the flash design
-// is the memory behaviour: the [Tq, Tk] score matrix never reaches device
-// memory, each q-tile (B1, B2) or k-tile (B3) is owned by one thread block
-// that loops over the other axis with its running state in shared memory and
-// registers, and tiles above the causal diagonal are skipped. There are no
-// atomics, so results are deterministic. Moving the products to wgmma with
-// TMA-fed tiles is the next step.
+// Two designs live here:
+// - bf16 B1 and B3 run on the tensor cores: wgmma products on TMA-fed tiles,
+//   a producer warpgroup and two consumer warpgroups a block
+//   (flash_attention_sm90.cuh, which has their note).
+// - This file's kernels multiply on the CUDA cores in f32 out of f32 tiles in
+//   shared memory. They serve every f32 call (the tensor cores take f32 only
+//   as TF32, too coarse for the f32 tolerance) and B2 in bf16 too, until B2
+//   is redesigned. What they keep from the flash design is the memory
+//   behaviour: the [Tq, Tk] score matrix never reaches device memory, each
+//   q-tile (B1, B2) or k-tile (B3) is owned by one thread block that loops
+//   over the other axis with its running state in shared memory and
+//   registers, and tiles above the causal diagonal are skipped.
+// Neither uses atomics, so results are deterministic.
 //
 // Layout: q/o/dq are [B, Tq, H, D], k/v/dk/dv [B, Tk, H, D], all contiguous
 // (the model's own layout, so no fold/unfold copies); m, l, dsum [B, H, Tq]
@@ -33,12 +41,16 @@
 // (the l == 0 -> 1 divide guard).
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
-// given stream, allocates nothing, and returns cudaGetLastError().
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 128.
+// given stream, allocates nothing, and returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 128. The bf16 B1 and B3
+// read their operands by TMA, which needs them 16-byte aligned (the Python
+// wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -528,6 +540,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (dtype == HVD_BF16 && D == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue;
 
+// f32 to this file's CUDA-core kernels, bf16 to the tensor-core ones.
+#define HVD_DISPATCH_SM90(LAUNCH, ...)                                            \
+  if (dtype == HVD_F32 && D == 64) return LAUNCH<float, 64>(__VA_ARGS__);          \
+  if (dtype == HVD_F32 && D == 128) return LAUNCH<float, 128>(__VA_ARGS__);        \
+  if (dtype == HVD_BF16 && D == 64) return sm90::LAUNCH<64>(__VA_ARGS__);          \
+  if (dtype == HVD_BF16 && D == 128) return sm90::LAUNCH<128>(__VA_ARGS__);        \
+  return (int)cudaErrorInvalidValue;
+
 extern "C" {
 
 const char* hvd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -535,8 +555,8 @@ const char* hvd_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 int hvd_fa_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                const float* bias, void* o, float* m, float* l, int B, int H, int Tq, int Tk,
                float scale, int causal, void* stream) {
-  HVD_DISPATCH(launch_fwd, q, k, v, bias, o, m, l, B, H, Tq, Tk, scale, causal,
-               (cudaStream_t)stream)
+  HVD_DISPATCH_SM90(launch_fwd, q, k, v, bias, o, m, l, B, H, Tq, Tk, scale, causal,
+                    (cudaStream_t)stream)
 }
 
 int hvd_fa_bwd_dq(int dtype, int D, const void* q, const void* k, const void* v,
@@ -551,8 +571,8 @@ int hvd_fa_bwd_dkv(int dtype, int D, const void* q, const void* k, const void* v
                    const void* dout, const float* m, const float* l, const float* dsum,
                    const float* bias, void* dk, void* dv, int B, int H, int Tq, int Tk,
                    float scale, int causal, void* stream) {
-  HVD_DISPATCH(launch_dkv, q, k, v, dout, m, l, dsum, bias, dk, dv, B, H, Tq, Tk, scale,
-               causal, (cudaStream_t)stream)
+  HVD_DISPATCH_SM90(launch_dkv, q, k, v, dout, m, l, dsum, bias, dk, dv, B, H, Tq, Tk,
+                    scale, causal, (cudaStream_t)stream)
 }
 
 }  // extern "C"

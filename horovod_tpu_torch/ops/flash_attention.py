@@ -1,9 +1,10 @@
 """Flash attention with ring-mergeable softmax residuals, on Hopper.
 
 Counterpart of ``horovod_tpu/ops/flash_attention.py``. The three Pallas TPU
-kernels of that module are CUDA C++ kernels here
-(``csrc/flash_attention.cu``), each behind a wrapper that checks its inputs,
-allocates its outputs, launches on the current stream and counts its
+kernels of that module are CUDA C++ kernels here (``csrc/flash_attention.cu``;
+the bf16 forward and dK/dV kernels, which run on the tensor cores, in
+``csrc/flash_attention_sm90.cuh``), each behind a wrapper that checks its
+inputs, allocates its outputs, launches on the current stream and counts its
 launches:
 
 - :func:`fa_fwd` (B1) replaces ``_fa_kernel``: blockwise online-softmax
@@ -104,6 +105,16 @@ def _plain_bwd_dkv(q, k, v, do, m, l, dsum, bias=None, *, causal, scale):
 
 # ------------------------------------------------------------ kernel wrappers
 
+def _check_aligned(*tensors):
+    """The bf16 kernels read their operands by TMA, which needs each
+    operand's address 16-byte aligned (its row strides, D * 2 and H * D * 2
+    bytes, always are)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("bf16 flash kernel operands must be 16-byte "
+                             f"aligned, not at address {t.data_ptr():#x}")
+
+
 def _check(q, k, v, bias, *others):
     """Validate what the CUDA kernels accept; raise on anything else."""
     if q.dtype not in _DTYPE_CODE:
@@ -125,6 +136,7 @@ def _check(q, k, v, bias, *others):
                              "device")
         if not t.is_contiguous():
             raise ValueError("flash kernel operands must be contiguous")
+    _check_aligned(q, k, v, *others)
     for t in (k, v):
         if t.dtype != q.dtype:
             raise TypeError("q, k and v must share one dtype")
@@ -168,9 +180,13 @@ def fa_fwd(q, k, v, bias=None, *, causal: bool, scale: float):
     D]`` tensors, m and l ``[B, H, Tq]`` f32.
 
     Replaces ``horovod_tpu/ops/flash_attention.py::_fa_kernel``. On the H100
-    at the Llama-3-8B training shape it is bound by its two products (about
-    69 us of dense bf16 tensor-core time); this first kernel multiplies on
-    the CUDA cores and keeps the score tile on chip (see the source's note).
+    at the Llama-3-8B training shape it is bound by its two products (69.5
+    us of dense bf16 tensor-core time). In bf16 it runs on the tensor cores
+    (``fa_fwd_kernel_sm90``): TMA brings K and V tiles through a ring in
+    shared memory, wgmma forms S and P V, and the online softmax runs on the
+    score fragment in registers; P enters P V as a bf16 hi + lo pair, which
+    keeps it to about 16 bits. f32 keeps the CUDA-core kernel
+    (``fa_fwd_kernel``). See the sources' notes.
     """
     if q.device.type == "cpu":
         return _reference_partial(q, k, v, bias, causal=causal, scale=scale)
@@ -230,9 +246,13 @@ def fa_bwd_dkv(q, k, v, do, m, l, dsum, bias=None, *, causal: bool,
     """B3, the dK/dV kernel: ``(dK, dV)`` from the saved statistics.
 
     Replaces ``horovod_tpu/ops/flash_attention.py::_fa_bwd_dkv_kernel``.
-    Bound on the H100 by its four products (about 139 us of dense bf16
-    tensor-core time at the Llama-3-8B shape); each thread block owns a
-    k-tile and loops over the q-tiles, so dK and dV need no atomics."""
+    Bound on the H100 by its four products (139 us of dense bf16 tensor-core
+    time at the Llama-3-8B shape); each thread block owns a k-tile and loops
+    over the q-tiles, so dK and dV need no atomics. In bf16 it runs on the
+    tensor cores (``fa_bwd_dkv_kernel_sm90``): K and V stay in shared memory
+    while TMA streams Q, dO and their statistics; wgmma forms S^T, dP^T,
+    P^T dO and dS^T Q, with P^T and dS^T as bf16 hi + lo pairs from
+    registers. f32 keeps the CUDA-core kernel (``fa_bwd_dkv_kernel``)."""
     if q.device.type == "cpu":
         return _plain_bwd_dkv(q, k, v, do, m, l, dsum, bias, causal=causal,
                               scale=scale)
@@ -333,8 +353,8 @@ def flash_attention(q, k, v, *, causal: bool = True, kv_mask=None,
     :func:`merge_partials` to combine attention over disjoint key shards.
 
     ``block_q`` and ``block_k`` keep the JAX signature. They sized the TPU's
-    VMEM tiles; the CUDA kernels' 64 x 64 tiles are fixed at compile time to
-    fit shared memory, so the values are checked and otherwise unused.
+    VMEM tiles; the CUDA kernels' tiles are fixed at compile time to fit
+    shared memory, so the values are checked and otherwise unused.
 
     Runs the CUDA kernels for CUDA tensors and their plain versions for CPU
     tensors."""

@@ -5,7 +5,9 @@
 - The three flash-attention kernels against their plain PyTorch versions on
   small cases the training shape of ``chip_smoke.py`` does not reach: head
   dims 64 and 128 in bf16 and f32, cross-attention, causal with Tq != Tk,
-  ragged sequence edges, key-padding bias, and rows that see no key.
+  ragged sequence edges over several tiles and under one, a single query,
+  key-padding bias, and rows that see no key; and the bf16 kernels'
+  refusal of an operand that is not 16-byte aligned.
   Tolerances as in ``chip_smoke.py``, per element: ``|kernel - plain| <= r *
   (|plain| + RMS(plain))``, r = 2^-7 for bf16 outputs (each side rounds an
   f32 value summed in another order, and the two roundings land at most one
@@ -81,6 +83,16 @@ CASES = {
                              (130, 77)),
     "f32-d64-causal-cross": (70, 200, 2, 64, torch.float32, True, None),
     "f32-d64-no-key-seen": (64, 96, 2, 64, torch.float32, False, (0, 50)),
+    # The bf16 tensor-core kernels (B1, B3) on their tile edges: ragged T
+    # over several tiles, a single query row, less than one tile, causal
+    # cross-attention, and rows that see no key.
+    "bf16-d128-causal-ragged": (1000, 1000, 2, 128, torch.bfloat16, True,
+                                None),
+    "bf16-d128-one-query": (1, 40, 2, 128, torch.bfloat16, False, None),
+    "bf16-d64-t33": (33, 33, 2, 64, torch.bfloat16, False, None),
+    "bf16-d64-causal-cross": (70, 200, 2, 64, torch.bfloat16, True, None),
+    "bf16-d128-no-key-seen": (100, 130, 2, 128, torch.bfloat16, False,
+                              (0, 77)),
 }
 
 
@@ -126,6 +138,31 @@ def test_kernels_match_plain_versions(cuda, case):
     if lengths is not None and 0 in lengths:
         assert float(l[lengths.index(0)].abs().max()) == 0.0
         assert float(o[lengths.index(0)].abs().max()) == 0.0
+
+
+def test_bf16_kernels_refuse_misaligned_operand(cuda):
+    """The bf16 kernels load by TMA, which takes 16-byte-aligned addresses
+    only: an operand 2 bytes past a 16-byte boundary is refused with
+    ValueError before any launch, by the forward and by the dK/dV wrapper."""
+    shape = (1, 64, 2, 64)
+    n = 64 * 2 * 64
+    buf = torch.randn(n + 8, device="cuda", dtype=torch.bfloat16)
+    bad = buf[1:n + 1].view(shape)
+    assert bad.data_ptr() % 16 == 2 and bad.is_contiguous()
+    good = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+    kw = dict(causal=True, scale=0.125)
+    before = {k: f.launches for k, f in fa.KERNELS.items()}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fa_fwd(bad, good, good, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fa_fwd(good, good, bad, **kw)
+    o, m, l = fa.fa_fwd(good, good, good, **kw)
+    dsum = fa._row_dsum(good, o)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fa_bwd_dkv(good, good, good, bad, m, l, dsum, **kw)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in fa.KERNELS.items()} == \
+        {"fa_fwd": 1, "fa_bwd_dq": 0, "fa_bwd_dkv": 0}
 
 
 def _fused_operands(case, gen):

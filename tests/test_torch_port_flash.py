@@ -203,3 +203,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         tfa._check_bwd(x, x.bfloat16(), stats, stats, stats)
     with pytest.raises(ValueError, match="float32"):
         tfa._check_bwd(x, x, stats, stats, torch.zeros(1, 8, 2))
+
+
+def test_bf16_operands_must_be_16_byte_aligned():
+    """The bf16 kernels load by TMA, which takes only 16-byte-aligned
+    addresses: a bf16 view 2 bytes past an aligned one is refused, f32 is
+    not checked, and an aligned bf16 tensor passes."""
+    buf = torch.zeros(2 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+    aligned = buf[:-8].view(2, 8, 2, 64)
+    assert aligned.data_ptr() % 16 == 0
+    tfa._check_aligned(aligned)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_aligned(aligned, buf[1:-7].view(2, 8, 2, 64))
+    tfa._check_aligned(torch.zeros(9)[1:])

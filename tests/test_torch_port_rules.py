@@ -117,3 +117,37 @@ def test_cpu_world_of_one_answers_like_the_reference():
             thvd.broadcast(x, 1)
     finally:
         thvd.shutdown()
+
+
+def test_bf16_attention_kernels_are_tensor_core_kernels_of_their_own():
+    """The bf16 B1 and B3 (``csrc/flash_attention_sm90.cuh``, included by
+    ``flash_attention.cu``) issue wgmma on tiles that TMA loads, with
+    mbarrier completion, and no kernel source calls a library's kernel."""
+    csrc = REPO / "horovod_tpu_torch" / "ops" / "csrc"
+    sm90 = (csrc / "flash_attention_sm90.cuh").read_text()
+    for needed in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "setmaxnreg", "fa_fwd_kernel_sm90",
+                   "fa_bwd_dkv_kernel_sm90"):
+        assert needed in sm90, needed
+    assert '#include "flash_attention_sm90.cuh"' in (
+        csrc / "flash_attention.cu").read_text()
+    text = "".join(f.read_text().lower() for f in sorted(csrc.iterdir()))
+    for banned in ("cublas", "cudnn", "cutlass", "cute/",
+                   "scaled_dot_product"):
+        assert banned not in text, banned
+
+
+def test_build_digest_covers_the_included_header(tmp_path, monkeypatch):
+    """An edit to the header rebuilds the library: the digest in its name
+    hashes every ``csrc/*.cu*`` file, not only the compiled sources."""
+    import shutil
+    from horovod_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._digest()
+    header = csrc / "flash_attention_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest() != before
+    assert [f.name for f in _build._sources()] == ["flash_attention.cu",
+                                                   "fused.cu"]
