@@ -10,7 +10,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. build   — builds ``horovod_tpu_torch/ops/csrc/*.cu`` with nvcc for sm_90a
-   into ``horovod_tpu_torch/_build/``.
+   into ``horovod_tpu_torch/_build/``, prints what ``-Xptxas -v`` says of
+   each kernel, and requires no ptxas warning, no C75xx note (wgmma
+   serialized) and 0 spill bytes in the tensor-core kernels.
 3. adasum  — the Adasum path, ``DistributedOptimizer(AdamW, op=Adasum)``,
    needs two ranks: Adasum in a world of one is identity, so on one card
    the phase prints that and runs nothing. With 2 or more cards it starts
@@ -25,8 +27,8 @@ Phases, one line each; any failure raises and the script exits nonzero:
    anything on the cards.
 4. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
    against its plain PyTorch version on the same inputs: at the training
-   shape (B=2, T=2048, H=32, D=128, causal) in bf16 (B1 and B3 on the
-   tensor cores) and again in f32 (the CUDA-core kernels), at a small f32
+   shape (B=2, T=2048, H=32, D=128, causal) in bf16 (the tensor-core
+   kernels) and again in f32 (the CUDA-core kernels), at a small f32
    non-causal case with a key-padding bias and a ragged T=1000 (D=64), and
    at a small bf16 non-causal case (D=64, Tq=100, Tk=300, a key-padding
    bias, one batch row that sees no key: its l and o must be exactly 0).
@@ -71,9 +73,9 @@ different orders, and round once to the output type.
   differences over at most 2048 terms are near 1e-6 of the summed
   magnitudes; 5e-5 leaves a margin of more than ten.
 
-The bf16 B1 and B3 feed P and dS to their second products as bf16 hi + lo
-pairs, about 16 bits, so their sums stay within about 2^-16 of the f32 ones
-and the two bounds above hold for them too.
+The bf16 B1, B2 and B3 feed P and dS to their second products as bf16 hi
++ lo pairs, about 16 bits, so their sums stay within about 2^-16 of the f32
+ones and the two bounds above hold for them too.
 
 The Adasum kernels:
 
@@ -104,10 +106,10 @@ H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 FA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
-#: The bf16 B1 and B3, which the main path runs, on the tensor cores.
+#: The bf16 B1, B2 and B3, which the main path runs, on the tensor cores.
 SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention_sm90.cuh"
 FUSED_SOURCE = "horovod_tpu_torch/ops/csrc/fused.cu"
-SOURCES = {"fa_fwd": SM90_SOURCE, "fa_bwd_dq": FA_SOURCE,
+SOURCES = {"fa_fwd": SM90_SOURCE, "fa_bwd_dq": SM90_SOURCE,
            "fa_bwd_dkv": SM90_SOURCE, "norms_dot": FUSED_SOURCE,
            "combine": FUSED_SOURCE}
 REPLACES = {"fa_fwd": "horovod_tpu/ops/flash_attention.py:57",
@@ -121,6 +123,25 @@ PRODUCTS = {"fa_fwd": 2, "fa_bwd_dq": 3, "fa_bwd_dkv": 4}
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+#: ptxas lines worth printing; C75xx notes that wgmma was serialized.
+PTXAS_LINES = ("registers", "spill", "Compiling", "arning", "C75")
+
+
+def check_ptxas(build_log):
+    """Fail if ptxas spilled in a tensor-core kernel, warned, or serialized
+    a wgmma (its C75xx notes); an empty log (the library was already built)
+    has nothing to check."""
+    kernel = None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "arning" in line or "C75" in line:
+            raise AssertionError(f"ptxas: {line.strip()}")
+        elif (kernel and "sm90" in kernel and "spill" in line and
+              "0 bytes spill stores, 0 bytes spill loads" not in line):
+            raise AssertionError(f"ptxas on {kernel}: {line.strip()}")
 
 
 def smi_line():
@@ -242,7 +263,7 @@ def time_kernels(fa, torch, args, kw):
         "fa_fwd": (time_ms(lambda: fa.fa_fwd(q, k, v, bias, **kw), 20),
                    time_ms(lambda: fa._reference_partial(q, k, v, bias,
                                                          **kw), 2)),
-        "fa_bwd_dq": (time_ms(lambda: fa.fa_bwd_dq(*args, **kw)),
+        "fa_bwd_dq": (time_ms(lambda: fa.fa_bwd_dq(*args, **kw), 20),
                       time_ms(lambda: fa._plain_bwd_dq(*args, **kw), 2)),
         "fa_bwd_dkv": (time_ms(lambda: fa.fa_bwd_dkv(*args, **kw), 20),
                        time_ms(lambda: fa._plain_bwd_dkv(*args, **kw), 2)),
@@ -701,8 +722,9 @@ def main():
     log("build", f"{time.perf_counter() - t0:.1f} s "
                  f"(nvcc {_build.build_seconds:.1f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in PTXAS_LINES):
             print("  " + line.strip())
+    check_ptxas(_build.build_log)
     adasum_launches = adasum_phase(torch, card)
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,

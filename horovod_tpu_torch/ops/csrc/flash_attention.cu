@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //   B1 fa_fwd_kernel_sm90 (bf16), fa_fwd_kernel (f32)  <- _fa_kernel
 //      (online-softmax forward, emits o, m, l)
-//   B2 fa_bwd_dq_kernel                                <- _fa_bwd_dq_kernel
+//   B2 fa_bwd_dq_kernel_sm90 (bf16), fa_bwd_dq_kernel (f32)
+//                                                      <- _fa_bwd_dq_kernel
 //      (FA2 dQ pass, k innermost)
 //   B3 fa_bwd_dkv_kernel_sm90 (bf16), fa_bwd_dkv_kernel (f32)
 //                                                      <- _fa_bwd_dkv_kernel
@@ -16,17 +17,16 @@
 // MB each, ~10 us at 3.35 TB/s, so every pass is compute-bound.
 //
 // Two designs live here:
-// - bf16 B1 and B3 run on the tensor cores: wgmma products on TMA-fed tiles,
-//   a producer warpgroup and two consumer warpgroups a block
+// - bf16 B1, B2 and B3 run on the tensor cores: wgmma products on TMA-fed
+//   tiles, a producer warpgroup and two consumer warpgroups a block
 //   (flash_attention_sm90.cuh, which has their note).
 // - This file's kernels multiply on the CUDA cores in f32 out of f32 tiles in
 //   shared memory. They serve every f32 call (the tensor cores take f32 only
-//   as TF32, too coarse for the f32 tolerance) and B2 in bf16 too, until B2
-//   is redesigned. What they keep from the flash design is the memory
-//   behaviour: the [Tq, Tk] score matrix never reaches device memory, each
-//   q-tile (B1, B2) or k-tile (B3) is owned by one thread block that loops
-//   over the other axis with its running state in shared memory and
-//   registers, and tiles above the causal diagonal are skipped.
+//   as TF32, too coarse for the f32 tolerance). What they keep from the flash
+//   design is the memory behaviour: the [Tq, Tk] score matrix never reaches
+//   device memory, each q-tile (B1, B2) or k-tile (B3) is owned by one thread
+//   block that loops over the other axis with its running state in shared
+//   memory and registers, and tiles above the causal diagonal are skipped.
 // Neither uses atomics, so results are deterministic.
 //
 // Layout: q/o/dq are [B, Tq, H, D], k/v/dk/dv [B, Tk, H, D], all contiguous
@@ -42,7 +42,7 @@
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream, allocates nothing, and returns a cudaError_t code.
-// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 128. The bf16 B1 and B3
+// dtype: 0 = float32, 1 = bfloat16. Head dims 64 and 128. The bf16 kernels
 // read their operands by TMA, which needs them 16-byte aligned (the Python
 // wrapper checks).
 
@@ -60,24 +60,15 @@ constexpr int BK = 64;       // k rows per tile
 constexpr int NT = 256;      // threads per block: a 16 x 16 grid
 constexpr int PLD = BK + 1;  // padded row length of the [BQ, BK] score tiles
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Rows [row0, row0 + ROWS) of one (batch, head) slice into shared memory as
 // f32 [ROWS][D + 1] (the +1 keeps column reads free of bank conflicts).
 // Rows at or past n are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int n,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n,
                                           int64_t row_stride) {
   for (int i = threadIdx.x; i < ROWS * D; i += NT) {
     const int r = i / D, c = i % D, t = row0 + r;
-    dst[r * (D + 1) + c] = t < n ? to_f(src[t * row_stride + c]) : 0.f;
+    dst[r * (D + 1) + c] = t < n ? src[t * row_stride + c] : 0.f;
   }
 }
 
@@ -138,11 +129,12 @@ __device__ __forceinline__ void tile_products(const float* qs, const float* ks, 
 }
 
 // ---------------------------------------------------------------- B1 forward
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int H, int Tq, int Tk, float scale, int causal) {
+    fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ bias,
+                  float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                  int H, int Tq, int Tk, float scale, int causal) {
   constexpr int LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][LD]
@@ -155,14 +147,14 @@ __global__ void __launch_bounds__(NT)
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
   const int64_t rs = (int64_t)H * D;
-  const T* qb = q + ((int64_t)b * Tq * H + h) * D;
-  const T* kb = k + ((int64_t)b * Tk * H + h) * D;
-  const T* vb = v + ((int64_t)b * Tk * H + h) * D;
+  const float* qb = q + ((int64_t)b * Tq * H + h) * D;
+  const float* kb = k + ((int64_t)b * Tk * H + h) * D;
+  const float* vb = v + ((int64_t)b * Tk * H + h) * D;
   const float* bb = bias == nullptr ? nullptr : bias + (int64_t)b * Tk;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<T, D, BQ>(qs, qb, q0, Tq, rs);
+  load_tile<D, BQ>(qs, qb, q0, Tq, rs);
   if (threadIdx.x < BQ) {
     m_s[threadIdx.x] = NEG_INF;
     l_s[threadIdx.x] = 0.f;
@@ -177,8 +169,8 @@ __global__ void __launch_bounds__(NT)
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
     __syncthreads();  // the previous tile's readers of ks, vs, ps are done
-    load_tile<T, D, BK>(ks, kb, k0, Tk, rs);
-    load_tile<T, D, BK>(vs, vb, k0, Tk, rs);
+    load_tile<D, BK>(ks, kb, k0, Tk, rs);
+    load_tile<D, BK>(vs, vb, k0, Tk, rs);
     __syncthreads();
 
     float s[4][4], unused[4][4];
@@ -242,7 +234,7 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  T* ob = o + ((int64_t)b * Tq * H + h) * D;
+  float* ob = o + ((int64_t)b * Tq * H + h) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, t = q0 + r;
@@ -250,7 +242,7 @@ __global__ void __launch_bounds__(NT)
     const float l = l_s[r];
     const float den = l == 0.f ? 1.f : l;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[t * rs + tx + 16 * j] = from_f<T>(acc[i][j] / den);
+    for (int j = 0; j < DJ; ++j) ob[t * rs + tx + 16 * j] = acc[i][j] / den;
   }
   if (threadIdx.x < BQ && q0 + threadIdx.x < Tq) {
     m_out[(int64_t)bh * Tq + q0 + threadIdx.x] = m_s[threadIdx.x];
@@ -288,13 +280,13 @@ __device__ __forceinline__ void recompute_p_ds(float s, float dp, float scale, c
 }
 
 // ---------------------------------------------------------------- B2 dQ pass
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-    fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ m,
-                     const float* __restrict__ l, const float* __restrict__ dsum,
-                     const float* __restrict__ bias, T* __restrict__ dq, int H, int Tq, int Tk,
-                     float scale, int causal) {
+    fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const float* __restrict__ dsum, const float* __restrict__ bias,
+                     float* __restrict__ dq, int H, int Tq, int Tk, float scale, int causal) {
   constexpr int LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][LD]
@@ -312,8 +304,8 @@ __global__ void __launch_bounds__(NT)
   const float* bb = bias == nullptr ? nullptr : bias + (int64_t)b * Tk;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D, BQ>(qs, q + qoff, q0, Tq, rs);
-  load_tile<T, D, BQ>(dos, dout + qoff, q0, Tq, rs);
+  load_tile<D, BQ>(qs, q + qoff, q0, Tq, rs);
+  load_tile<D, BQ>(dos, dout + qoff, q0, Tq, rs);
   load_row_stats(m_s, l_s, d_s, m, l, dsum, (int64_t)bh * Tq, q0, Tq);
   float acc[4][DJ];
 #pragma unroll
@@ -325,8 +317,8 @@ __global__ void __launch_bounds__(NT)
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
     __syncthreads();
-    load_tile<T, D, BK>(ks, k + koff, k0, Tk, rs);
-    load_tile<T, D, BK>(vs, v + koff, k0, Tk, rs);
+    load_tile<D, BK>(ks, k + koff, k0, Tk, rs);
+    load_tile<D, BK>(vs, v + koff, k0, Tk, rs);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -358,24 +350,25 @@ __global__ void __launch_bounds__(NT)
     }
   }
 
-  T* dqb = dq + qoff;
+  float* dqb = dq + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dqb[t * rs + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < DJ; ++j) dqb[t * rs + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
 // ------------------------------------------------------------- B3 dK/dV pass
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-    fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ m,
-                      const float* __restrict__ l, const float* __restrict__ dsum,
-                      const float* __restrict__ bias, T* __restrict__ dk, T* __restrict__ dv,
-                      int H, int Tq, int Tk, float scale, int causal) {
+    fa_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ m, const float* __restrict__ l,
+                      const float* __restrict__ dsum, const float* __restrict__ bias,
+                      float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk,
+                      float scale, int causal) {
   constexpr int LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][LD]
@@ -394,8 +387,8 @@ __global__ void __launch_bounds__(NT)
   const float* bb = bias == nullptr ? nullptr : bias + (int64_t)b * Tk;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D, BK>(ks, k + koff, k0, Tk, rs);
-  load_tile<T, D, BK>(vs, v + koff, k0, Tk, rs);
+  load_tile<D, BK>(ks, k + koff, k0, Tk, rs);
+  load_tile<D, BK>(vs, v + koff, k0, Tk, rs);
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -411,8 +404,8 @@ __global__ void __launch_bounds__(NT)
   for (int iq = iq0; iq < nq; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();
-    load_tile<T, D, BQ>(qs, q + qoff, q0, Tq, rs);
-    load_tile<T, D, BQ>(dos, dout + qoff, q0, Tq, rs);
+    load_tile<D, BQ>(qs, q + qoff, q0, Tq, rs);
+    load_tile<D, BQ>(dos, dout + qoff, q0, Tq, rs);
     load_row_stats(m_s, l_s, d_s, m, l, dsum, (int64_t)bh * Tq, q0, Tq);
     __syncthreads();
 
@@ -456,16 +449,16 @@ __global__ void __launch_bounds__(NT)
     }
   }
 
-  T* dkb = dk + koff;
-  T* dvb = dv + koff;
+  float* dkb = dk + koff;
+  float* dvb = dv + koff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = k0 + ty + 16 * i;
     if (t >= Tk) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dkb[t * rs + tx + 16 * j] = from_f<T>(dk_acc[i][j] * scale);
-      dvb[t * rs + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
+      dkb[t * rs + tx + 16 * j] = dk_acc[i][j] * scale;
+      dvb[t * rs + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
@@ -485,45 +478,47 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
                float* m, float* l, int B, int H, int Tq, int Tk, float scale, int causal,
                cudaStream_t stream) {
-  auto kernel = fa_fwd_kernel<T, D>;
+  auto kernel = fa_fwd_kernel<D>;
   const size_t smem = fwd_smem(D);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, bias, (T*)o, m, l,
-                                     H, Tq, Tk, scale, causal);
+  kernel<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v, bias,
+                                     (float*)o, m, l, H, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* m,
               const float* l, const float* dsum, const float* bias, void* dq, int B, int H,
               int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
-  auto kernel = fa_bwd_dq_kernel<T, D>;
+  auto kernel = fa_bwd_dq_kernel<D>;
   const size_t smem = dq_smem(D);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, m,
-                                     l, dsum, bias, (T*)dq, H, Tq, Tk, scale, causal);
+  kernel<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                     (const float*)dout, m, l, dsum, bias, (float*)dq, H, Tq, Tk,
+                                     scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* m,
                const float* l, const float* dsum, const float* bias, void* dk, void* dv, int B,
                int H, int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
-  auto kernel = fa_bwd_dkv_kernel<T, D>;
+  auto kernel = fa_bwd_dkv_kernel<D>;
   const size_t smem = dkv_smem(D);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tk + BK - 1) / BK, B * H);
-  kernel<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, m,
-                                     l, dsum, bias, (T*)dk, (T*)dv, H, Tq, Tk, scale, causal);
+  kernel<<<grid, NT, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                     (const float*)dout, m, l, dsum, bias, (float*)dk, (float*)dv,
+                                     H, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -533,19 +528,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 #define HVD_F32 0
 #define HVD_BF16 1
 
-#define HVD_DISPATCH(LAUNCH, ...)                                                 \
-  if (dtype == HVD_F32 && D == 64) return LAUNCH<float, 64>(__VA_ARGS__);          \
-  if (dtype == HVD_F32 && D == 128) return LAUNCH<float, 128>(__VA_ARGS__);        \
-  if (dtype == HVD_BF16 && D == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__); \
-  if (dtype == HVD_BF16 && D == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
-  return (int)cudaErrorInvalidValue;
-
 // f32 to this file's CUDA-core kernels, bf16 to the tensor-core ones.
-#define HVD_DISPATCH_SM90(LAUNCH, ...)                                            \
-  if (dtype == HVD_F32 && D == 64) return LAUNCH<float, 64>(__VA_ARGS__);          \
-  if (dtype == HVD_F32 && D == 128) return LAUNCH<float, 128>(__VA_ARGS__);        \
-  if (dtype == HVD_BF16 && D == 64) return sm90::LAUNCH<64>(__VA_ARGS__);          \
-  if (dtype == HVD_BF16 && D == 128) return sm90::LAUNCH<128>(__VA_ARGS__);        \
+#define HVD_DISPATCH_SM90(LAUNCH, ...)                                     \
+  if (dtype == HVD_F32 && D == 64) return LAUNCH<64>(__VA_ARGS__);         \
+  if (dtype == HVD_F32 && D == 128) return LAUNCH<128>(__VA_ARGS__);       \
+  if (dtype == HVD_BF16 && D == 64) return sm90::LAUNCH<64>(__VA_ARGS__);   \
+  if (dtype == HVD_BF16 && D == 128) return sm90::LAUNCH<128>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue;
 
 extern "C" {
@@ -563,8 +551,8 @@ int hvd_fa_bwd_dq(int dtype, int D, const void* q, const void* k, const void* v,
                   const void* dout, const float* m, const float* l, const float* dsum,
                   const float* bias, void* dq, int B, int H, int Tq, int Tk, float scale,
                   int causal, void* stream) {
-  HVD_DISPATCH(launch_dq, q, k, v, dout, m, l, dsum, bias, dq, B, H, Tq, Tk, scale, causal,
-               (cudaStream_t)stream)
+  HVD_DISPATCH_SM90(launch_dq, q, k, v, dout, m, l, dsum, bias, dq, B, H, Tq, Tk, scale,
+                    causal, (cudaStream_t)stream)
 }
 
 int hvd_fa_bwd_dkv(int dtype, int D, const void* q, const void* k, const void* v,

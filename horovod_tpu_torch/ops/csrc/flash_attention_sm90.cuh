@@ -1,21 +1,22 @@
-// Flash attention on Hopper's tensor cores: the bf16 forward (B1) and dK/dV
-// (B3) kernels, included by flash_attention.cu.
+// Flash attention on Hopper's tensor cores: the bf16 forward (B1), dQ (B2)
+// and dK/dV (B3) kernels, included by flash_attention.cu.
 //
 //   fa_fwd_kernel_sm90      <- horovod_tpu/ops/flash_attention.py::_fa_kernel
+//   fa_bwd_dq_kernel_sm90   <- horovod_tpu/ops/flash_attention.py::_fa_bwd_dq_kernel
 //   fa_bwd_dkv_kernel_sm90  <- horovod_tpu/ops/flash_attention.py::_fa_bwd_dkv_kernel
 //
 // What bounds them: tensor-core operations. At the Llama-3-8B training shape
 // (B*H = 64, T = 2048, D = 128, causal) B1 does two products, 68.7 GFLOP,
-// 69.5 us at the H100's 989 TFLOP/s dense bf16; B3 does four, 137 GFLOP,
-// 139 us. Their bytes (q, k, v, dO, o, dk, dv ~34 MB each) take ~10 us a
-// tensor at 3.35 TB/s.
+// 69.5 us at the H100's 989 TFLOP/s dense bf16; B2 does three, 103 GFLOP,
+// 104 us; B3 does four, 137 GFLOP, 139 us. Their bytes (q, k, v, dO, o, dq,
+// dk, dv ~34 MB each) take ~10 us a tensor at 3.35 TB/s.
 //
 // What the design does about it. Every product is a wgmma (bf16 operands,
 // f32 accumulators) and every operand tile arrives by TMA:
 // - A block is three warpgroups: two consumers, each owning 64 rows of the
-//   block's tile, and a producer whose first thread (B1) or first warp (B3)
-//   keeps TMA loads in flight. setmaxnreg hands the producer's registers to
-//   the consumers (24 against 240 a thread).
+//   block's tile, and a producer whose first thread (B1, B2) or first warp
+//   (B3) keeps TMA loads in flight. setmaxnreg hands the producer's
+//   registers to the consumers (24 against 240 a thread).
 // - Operand tiles land in shared memory in the 128-byte swizzle that wgmma's
 //   descriptors read. A TMA box is 64 bf16 columns wide at that swizzle, so a
 //   D = 128 row arrives as two boxes, and each k-step of 16 columns selects
@@ -25,6 +26,9 @@
 //   "full" ones count TMA bytes (and, in B3, the producer warp's arrivals
 //   after it wrote the statistics), "empty" ones one arrival from each
 //   consumer warp when it is done with the stage.
+// - P is never kept between the passes. B2 and B3 recompute it from the
+//   forward's row statistics, as the TPU kernels do: p = exp2(s scale
+//   log2(e) - c) with c = m log2(e) + log2(l) after the l == 0 -> 1 guard.
 // - The two consumer warpgroups take turns to issue their products (named
 //   barriers 1 and 2), so that one's softmax or elementwise work overlaps
 //   the other's products on the tensor cores.
@@ -47,23 +51,37 @@
 //   (dP^T - dsum) formed while it runs, then dK += dS^T Q; P^T and dS^T are
 //   register A operands, dO and Q MN-major B operands. No atomics: the result
 //   is deterministic.
+// - B2, per 128-row q-tile with Q and dO resident (TMA, once), K and V
+//   tiles of 64 rows through a four-stage ring on one barrier a stage: S = Q
+//   K^T and dP = dO V^T (all four operands K-major), then dQ += dS K with
+//   dS from registers and the same K tile read as the MN-major B operand.
+//   Each thread's two q rows are fixed, so c and dsum stay in registers
+//   from the start. Iteration j issues S_j and dP_j and then dS_{j-1}
+//   K_{j-1}, and forms dS_j = P_j (dP_j - dsum) while the latter is on the
+//   tensor cores; first and last iterations are peeled, as in B1. k-tiles of
+//   64 rows because registers, not shared memory, bound the tile: the dQ
+//   accumulator (64 f32 a thread at D = 128), S, dP and dS's hi and lo
+//   fragments (32 each) come to 160 of the consumers' 240, and 128-row
+//   tiles would need 256. Four stages, with Q and dO, fill 192 KB of shared
+//   memory at D = 128. Tiles above the causal diagonal are skipped, only
+//   the diagonal, ragged and bias tiles are masked, and no atomics are
+//   needed: a block owns its dQ rows.
 // - Precision of the second products. The TPU kernels round P and dS once to
 //   bf16 (p.astype(v.dtype), ds.astype(q.dtype)). Here that missed the
 //   per-element tolerance against the f32 plain versions at the training
 //   shape several times over: B1 rounds p against the running row max, not
 //   the final one, and B3's dS differs from the plain one before rounding.
-//   So P (B1) and P^T, dS^T (B3) enter as two bf16 fragments, hi = bf16(x)
-//   and lo = bf16(x - hi), about 16 bits of x, at the cost of one more
-//   wgmma for each of them: three products in B1 and six in B3 where the
-//   TPU does two and four.
+//   So P (B1), dS (B2) and P^T, dS^T (B3) enter as two bf16 fragments, hi =
+//   bf16(x) and lo = bf16(x - hi), about 16 bits of x, at the cost of one
+//   more wgmma for each of them: three products in B1, four in B2 and six in
+//   B3 where the TPU does two, three and four.
 //
 // The masking algebra is the TPU kernel's, as in flash_attention.cu: the
 // finite NEG_INF, p = 0 where s <= NEG_INF / 2, l = 0 and output 0 for rows
 // that see no key.
 //
 // The f32 path keeps flash_attention.cu's CUDA-core kernels: the tensor
-// cores take f32 only as TF32, too coarse for its tolerance. B2 (dQ) still
-// runs there in bf16 too.
+// cores take f32 only as TF32, too coarse for its tolerance.
 
 #pragma once
 
@@ -742,6 +760,233 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+// ---------------------------------------------------------------- B2 dQ pass
+
+// dS = p (dP - dsum) of one tile, in place in the dP fragment (q rows row0
+// and row0 + 8, key columns k0 + ...), as recompute_p_ds forms it: p =
+// exp2(x log2(e) - c) of the masked, scaled score x, with c = m log2(e) +
+// log2(l) of the row, and p = 0 where x <= NEG_INF / 2.
+template <bool MASKED, int N>
+__device__ __forceinline__ void dq_scores(const float (&sc)[N], float (&dp)[N],
+                                          const float (&c)[2], const float (&dsr)[2], float scale,
+                                          const float* bb, int k0, int Tk, int causal, int row0,
+                                          int c2) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int rr = (i >> 1) & 1, kp = k0 + 8 * (i >> 2) + c2 + (i & 1);
+    float x = sc[i] * scale;
+    if (MASKED) {
+      if (bb != nullptr && kp < Tk) x += bb[kp];
+      if (kp >= Tk || (causal && row0 + 8 * rr < kp)) x = NEG_INF;
+    }
+    float p = exp2_approx(fmaf(x, LOG2E, -c[rr]));
+    if (MASKED && x <= NEG_INF / 2) p = 0.f;
+    dp[i] = p * (dp[i] - dsr[rr]);
+  }
+}
+
+template <int D>
+struct Dq {
+  static constexpr int BQ = 128;  // q rows a block (64 a consumer warpgroup)
+  static constexpr int BK = 64;   // k rows a streamed tile: at 128 S, dP and dS would spill
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int Q_BOX = BQ * ROW_BYTES;
+  static constexpr int KV_BOX = BK * ROW_BYTES;
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    fa_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ m,
+                          const float* __restrict__ l, const float* __restrict__ dsum,
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ dq, int H,
+                          int Tq, int Tk, float scale, int causal) {
+  using C = Dq<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sDO = sQ + C::Q_BYTES;
+  const uint32_t sK = sDO + C::Q_BYTES;                 // [C::STAGES]
+  const uint32_t sV = sK + C::STAGES * C::KV_BYTES;     // [C::STAGES]
+  const uint32_t bar_q = sV + C::STAGES * C::KV_BYTES;  // Q and dO arrived
+  const uint32_t bar_full = bar_q + 8;                  // [C::STAGES] K and V arrived
+  const uint32_t bar_empty = bar_full + 8 * C::STAGES;  // [C::STAGES]
+
+  // As in B1: a head's q-tiles are neighbours in the grid, and the heaviest
+  // (last) q-tiles start first.
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int nq = (Tq + C::BQ - 1) / C::BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * C::BQ;
+  const int nk_all = (Tk + C::BK - 1) / C::BK;
+  const int nk = causal ? min(nk_all, (q0 + C::BQ - 1) / C::BK + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int x = 0; x < D / 64; ++x) {
+        tma_load(sQ + x * C::Q_BOX, &tm_q, bar_q, 64 * x, h, q0, b);
+        tma_load(sDO + x * C::Q_BOX, &tm_do, bar_q, 64 * x, h, q0, b);
+      }
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % C::STAGES;
+        mbar_wait(bar_empty + 8 * s, ((it / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x) {
+          tma_load(sK + s * C::KV_BYTES + x * C::KV_BOX, &tm_k, bar_full + 8 * s, 64 * x, h,
+                   it * C::BK, b);
+          tma_load(sV + s * C::KV_BYTES + x * C::KV_BOX, &tm_v, bar_full + 8 * s, 64 * x, h,
+                   it * C::BK, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns q rows q0 + 64 wg ...
+    regs_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, c2 = 2 * (lane & 3);
+    const int q_first = q0 + 64 * wg;
+    const int row0 = q_first + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+    const float* bb = bias == nullptr ? nullptr : bias + (int64_t)b * Tk;
+
+    // The rows' statistics stay in registers: c = m log2(e) + log2(l) after
+    // the l == 0 -> 1 guard, and dsum. Rows past Tq get c = -NEG_INF, so
+    // that every p of theirs is 0, and write nothing.
+    float c[2], dsr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr;
+      const bool in = row < Tq;
+      const float lv = in ? l[(int64_t)bh * Tq + row] : 1.f;
+      c[rr] = in ? fmaf(m[(int64_t)bh * Tq + row], LOG2E, __log2f(lv == 0.f ? 1.f : lv))
+                 : -NEG_INF;
+      dsr[rr] = in ? dsum[(int64_t)bh * Tq + row] : 0.f;
+    }
+
+    float acc[D / 2], sc[C::BK / 2], dp[C::BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) {
+      sc[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    uint32_t ds_hi[C::BK / 16][4], ds_lo[C::BK / 16][4];
+
+    // Iteration j issues S_j = Q K_j^T and dP_j = dO V_j^T, then dQ +=
+    // dS_{j-1} K_{j-1}; dS_j is formed while the latter is on the tensor
+    // cores. The warpgroups take turns to issue, as in B1.
+    const uint64_t desc_q = sw128_desc(sQ + 64 * wg * ROW_BYTES, 16, 1024);
+    const uint64_t desc_do = sw128_desc(sDO + 64 * wg * ROW_BYTES, 16, 1024);
+    // S_j and dP_j, all four operands K-major, over D in k-steps of 16.
+    auto issue_sdp = [&](int j) {
+      const uint32_t st = (j % C::STAGES) * C::KV_BYTES;
+      const uint64_t dk = sw128_desc(sK + st, 16, 1024), dv = sw128_desc(sV + st, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, desc_q + ((kk / 4) * C::Q_BOX + (kk % 4) * 32) / 16,
+                 dk + ((kk / 4) * C::KV_BOX + (kk % 4) * 32) / 16, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, desc_do + ((kk / 4) * C::Q_BOX + (kk % 4) * 32) / 16,
+                 dv + ((kk / 4) * C::KV_BOX + (kk % 4) * 32) / 16, kk > 0);
+      wgmma_commit();
+    };
+    // dQ += dS_j K_j, dS as bf16 hi + lo from registers, the same K tile as
+    // the MN-major B operand (rows of 64 d values per key; the two d boxes
+    // lie KV_BOX apart).
+    auto issue_dq = [&](int j) {
+      const uint64_t dk = sw128_desc(sK + (j % C::STAGES) * C::KV_BYTES, C::KV_BOX, 1024);
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk) {
+        wgmma_rs(acc, ds_hi[kk], dk + kk * 16 * ROW_BYTES / 16);
+        wgmma_rs(acc, ds_lo[kk], dk + kk * 16 * ROW_BYTES / 16);
+      }
+      wgmma_commit();
+    };
+    // dS_j in place in dP; masking is needed with a bias, on the ragged key
+    // edge and on the causal diagonal, and other tiles skip it.
+    auto scores = [&](int j) {
+      fence_regs(sc);
+      fence_regs(dp);
+      const int k0 = j * C::BK;
+      if (bb != nullptr || k0 + C::BK > Tk || (causal && k0 + C::BK - 1 > q_first))
+        dq_scores<true>(sc, dp, c, dsr, scale, bb, k0, Tk, causal, row0, c2);
+      else
+        dq_scores<false>(sc, dp, c, dsr, scale, bb, k0, Tk, causal, row0, c2);
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk) acc_to_a2(dp, kk, ds_hi[kk], ds_lo[kk]);
+    };
+    auto release = [&](int j) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (j % C::STAGES));
+    };
+
+    if (wg == 1) named_arrive(1);
+    mbar_wait(bar_q, 0);
+    mbar_wait(bar_full, 0);
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_sdp(0);
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    scores(0);
+    pack();
+    for (int j = 1; j < nk; ++j) {
+      mbar_wait(bar_full + 8 * (j % C::STAGES), (j / C::STAGES) & 1);
+      named_sync(1 + wg);
+      wgmma_fence();
+      issue_sdp(j);
+      issue_dq(j - 1);
+      named_arrive(2 - wg);
+      wgmma_wait<1>();
+      scores(j);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(j - 1);
+      pack();
+    }
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_dq(nk - 1);
+    if (wg == 0) named_arrive(2);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(nk - 1);
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr;
+      if (row >= Tq) continue;
+      __nv_bfloat16* qrow = dq + (((int64_t)b * Tq + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int i = 4 * j + 2 * rr;
+        *reinterpret_cast<uint32_t*>(qrow + 8 * j + c2) =
+            pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -807,6 +1052,27 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias, v
   dim3 grid((Tq + C::BQ - 1) / C::BQ, B * H);
   kernel<<<grid, NT, C::SMEM, stream>>>(tq, tk, tv, bias, (__nv_bfloat16*)o, m, l, H, Tq, Tk,
                                         scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* m,
+              const float* l, const float* dsum, const float* bias, void* dq, int B, int H,
+              int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
+  using C = Dq<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, B, Tq, H, D, C::BQ)) != cudaSuccess ||
+      (err = make_map(&tdo, dout, B, Tq, H, D, C::BQ)) != cudaSuccess ||
+      (err = make_map(&tk, k, B, Tk, H, D, C::BK)) != cudaSuccess ||
+      (err = make_map(&tv, v, B, Tk, H, D, C::BK)) != cudaSuccess)
+    return (int)err;
+  auto kernel = fa_bwd_dq_kernel_sm90<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + C::BQ - 1) / C::BQ, B * H);
+  kernel<<<grid, NT, C::SMEM, stream>>>(tq, tk, tv, tdo, m, l, dsum, bias, (__nv_bfloat16*)dq, H,
+                                        Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 

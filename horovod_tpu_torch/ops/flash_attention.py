@@ -2,7 +2,7 @@
 
 Counterpart of ``horovod_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels of that module are CUDA C++ kernels here (``csrc/flash_attention.cu``;
-the bf16 forward and dK/dV kernels, which run on the tensor cores, in
+the bf16 kernels, which run on the tensor cores, in
 ``csrc/flash_attention_sm90.cuh``), each behind a wrapper that checks its
 inputs, allocates its outputs, launches on the current stream and counts its
 launches:
@@ -216,9 +216,14 @@ def fa_bwd_dq(q, k, v, do, m, l, dsum, bias=None, *, causal: bool,
     rowsum(dO * O)`` (all ``[B, H, Tq]`` f32).
 
     Replaces ``horovod_tpu/ops/flash_attention.py::_fa_bwd_dq_kernel``.
-    Bound on the H100 by its three products (about 104 us of dense bf16
+    Bound on the H100 by its three products (104 us of dense bf16
     tensor-core time at the Llama-3-8B shape); each thread block owns a
-    q-tile and loops over the k-tiles, so dQ needs no atomics."""
+    q-tile and loops over the k-tiles, so dQ needs no atomics. In bf16 it
+    runs on the tensor cores (``fa_bwd_dq_kernel_sm90``): Q and dO stay in
+    shared memory while TMA streams K and V; wgmma forms S, dP and dS K,
+    with P recomputed from the saved statistics and dS entering as a bf16
+    hi + lo pair from registers. f32 keeps the CUDA-core kernel
+    (``fa_bwd_dq_kernel``)."""
     if q.device.type == "cpu":
         return _plain_bwd_dq(q, k, v, do, m, l, dsum, bias, causal=causal,
                              scale=scale)

@@ -4,8 +4,9 @@
 
 - The three flash-attention kernels against their plain PyTorch versions on
   small cases the training shape of ``chip_smoke.py`` does not reach: head
-  dims 64 and 128 in bf16 and f32, cross-attention, causal with Tq != Tk,
-  ragged sequence edges over several tiles and under one, a single query,
+  dims 64 and 128 in bf16 and f32, cross-attention, causal with Tq < Tk and
+  Tq > Tk, ragged sequence edges over several tiles and under one, a key
+  length off the 64-row tiles of the bf16 dQ kernel, a single query,
   key-padding bias, and rows that see no key; and the bf16 kernels'
   refusal of an operand that is not 16-byte aligned.
   Tolerances as in ``chip_smoke.py``, per element: ``|kernel - plain| <= r *
@@ -83,7 +84,7 @@ CASES = {
                              (130, 77)),
     "f32-d64-causal-cross": (70, 200, 2, 64, torch.float32, True, None),
     "f32-d64-no-key-seen": (64, 96, 2, 64, torch.float32, False, (0, 50)),
-    # The bf16 tensor-core kernels (B1, B3) on their tile edges: ragged T
+    # The bf16 tensor-core kernels (B1-B3) on their tile edges: ragged T
     # over several tiles, a single query row, less than one tile, causal
     # cross-attention, and rows that see no key.
     "bf16-d128-causal-ragged": (1000, 1000, 2, 128, torch.bfloat16, True,
@@ -93,6 +94,11 @@ CASES = {
     "bf16-d64-causal-cross": (70, 200, 2, 64, torch.bfloat16, True, None),
     "bf16-d128-no-key-seen": (100, 130, 2, 128, torch.bfloat16, False,
                               (0, 77)),
+    # B2's 64-row k-tiles: a key length that is not a multiple of 64 under a
+    # bias, and causal attention with more queries than keys.
+    "bf16-d128-cross-bias-ragged-k": (130, 1000, 2, 128, torch.bfloat16,
+                                      False, (1000, 333)),
+    "bf16-d64-causal-tq-gt-tk": (300, 100, 2, 64, torch.bfloat16, True, None),
 }
 
 
@@ -143,7 +149,8 @@ def test_kernels_match_plain_versions(cuda, case):
 def test_bf16_kernels_refuse_misaligned_operand(cuda):
     """The bf16 kernels load by TMA, which takes 16-byte-aligned addresses
     only: an operand 2 bytes past a 16-byte boundary is refused with
-    ValueError before any launch, by the forward and by the dK/dV wrapper."""
+    ValueError before any launch, by the forward, the dQ and the dK/dV
+    wrapper."""
     shape = (1, 64, 2, 64)
     n = 64 * 2 * 64
     buf = torch.randn(n + 8, device="cuda", dtype=torch.bfloat16)
@@ -158,6 +165,10 @@ def test_bf16_kernels_refuse_misaligned_operand(cuda):
         fa.fa_fwd(good, good, bad, **kw)
     o, m, l = fa.fa_fwd(good, good, good, **kw)
     dsum = fa._row_dsum(good, o)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fa_bwd_dq(good, bad, good, good, m, l, dsum, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.fa_bwd_dq(good, good, good, bad, m, l, dsum, **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.fa_bwd_dkv(good, good, good, bad, m, l, dsum, **kw)
     torch.cuda.synchronize()

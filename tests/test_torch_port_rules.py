@@ -120,14 +120,14 @@ def test_cpu_world_of_one_answers_like_the_reference():
 
 
 def test_bf16_attention_kernels_are_tensor_core_kernels_of_their_own():
-    """The bf16 B1 and B3 (``csrc/flash_attention_sm90.cuh``, included by
-    ``flash_attention.cu``) issue wgmma on tiles that TMA loads, with
+    """The bf16 B1, B2 and B3 (``csrc/flash_attention_sm90.cuh``, included
+    by ``flash_attention.cu``) issue wgmma on tiles that TMA loads, with
     mbarrier completion, and no kernel source calls a library's kernel."""
     csrc = REPO / "horovod_tpu_torch" / "ops" / "csrc"
     sm90 = (csrc / "flash_attention_sm90.cuh").read_text()
     for needed in ("wgmma.mma_async", "cp.async.bulk.tensor",
                    "mbarrier.try_wait", "setmaxnreg", "fa_fwd_kernel_sm90",
-                   "fa_bwd_dkv_kernel_sm90"):
+                   "fa_bwd_dq_kernel_sm90", "fa_bwd_dkv_kernel_sm90"):
         assert needed in sm90, needed
     assert '#include "flash_attention_sm90.cuh"' in (
         csrc / "flash_attention.cu").read_text()
@@ -135,6 +135,25 @@ def test_bf16_attention_kernels_are_tensor_core_kernels_of_their_own():
     for banned in ("cublas", "cudnn", "cutlass", "cute/",
                    "scaled_dot_product"):
         assert banned not in text, banned
+
+
+@pytest.mark.parametrize("entry, launch", [("hvd_fa_fwd", "launch_fwd"),
+                                           ("hvd_fa_bwd_dq", "launch_dq"),
+                                           ("hvd_fa_bwd_dkv", "launch_dkv")])
+def test_bf16_attention_entry_point_dispatches_to_tensor_cores(entry, launch):
+    """Each flash-attention entry point sends bf16 to the tensor-core
+    kernel (``sm90::launch_*``) through ``HVD_DISPATCH_SM90``, and f32 to
+    the CUDA-core one; no entry point keeps bf16 on the CUDA cores."""
+    src = (REPO / "horovod_tpu_torch" / "ops" / "csrc" /
+           "flash_attention.cu").read_text()
+    body = re.search(rf"^int {entry}\(.*?^}}", src, re.M | re.S)
+    assert body is not None, entry
+    assert re.search(rf"HVD_DISPATCH_SM90\({launch},", body.group(0))
+    macro = re.search(r"^#define HVD_DISPATCH_SM90\(.*?\n\n", src,
+                      re.M | re.S).group(0)
+    assert "HVD_BF16 && D == 64) return sm90::LAUNCH<64>" in macro
+    assert "HVD_BF16 && D == 128) return sm90::LAUNCH<128>" in macro
+    assert not re.search(r"^#define HVD_DISPATCH\(", src, re.M)
 
 
 def test_build_digest_covers_the_included_header(tmp_path, monkeypatch):
