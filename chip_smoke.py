@@ -56,6 +56,33 @@ Phases, one line each; any failure raises and the script exits nonzero:
    beside their bounds, their plain versions and their yardsticks (three
    ``torch.dot`` calls for B4, ``torch.add(a.mul(ca), b, alpha=cb)`` for
    B5; the port calls neither).
+8. resnet  — the ResNet path, as ``bench.py`` runs it: ``init()`` (an NCCL
+   world of one), ``ResNet50(stem="space_to_depth")`` with SyncBatchNorm,
+   bf16 compute and f32 parameters, channels_last,
+   ``DistributedOptimizer(SGD(lr 0.1, momentum 0.9))``, a seeded synthetic
+   batch of 128 x 224 x 224 x 3 images and 1000-class labels, 4 steps, the
+   last under ``torch.profiler``. Requires finite losses, one all-reduce per
+   fusion bucket per step, and BatchNorm running statistics that moved and
+   are finite. Prints images/s/GPU, the step time, peak memory and the
+   profiled step's device time by kernel group.
+9. bert    — the BERT path: ``bert_large()`` at full depth (24 layers), 8 x
+   512 tokens with a key-padding mask whose rows hold 512, 480, ..., 288
+   real tokens, pads labelled -1 and 15 % of the real positions MLM labels
+   (``benchmarks/bert.py``), ``DistributedOptimizer(AdamW(1e-4),
+   compression=Compression.bf16)``, flash attention by the automatic rule;
+   4 steps, the last profiled. Requires finite, falling losses, B1, B2 and
+   B3 each launched 24 times a step, and one all-reduce per bucket per
+   step. Prints tokens/s/GPU, the step time, peak memory and the breakdown.
+10. bert-kernels — B1, B2 and B3 against their plain versions at BERT's
+   shape (B=8, T=512, H=16, D=64, not causal, the key-padding bias of phase
+   9), in bf16 and again in f32, at the tolerances below; times each beside
+   its bound, its plain version and ``F.scaled_dot_product_attention`` with
+   the same additive mask, and names the SDPA back end that mask selects.
+11. crossover — one BERT-Large layer's attention (B=8, H=16, D=64, bf16, a
+   ragged mask), forward and backward, through the flash kernels and through
+   the materialised softmax of ``models/bert.py``, at T = 128, 256, 512 and
+   1024: the shortest T from which flash is faster (``models/_flash.py``'s
+   ``AUTO_MIN_SEQ``).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.
@@ -271,8 +298,10 @@ def time_kernels(fa, torch, args, kw):
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=kw["causal"], scale=kw["scale"])
+        qt, kt, vt, attn_mask=mask, is_causal=kw["causal"],
+        scale=kw["scale"])
     with torch.no_grad():
         lib_fwd = time_ms(sdpa)
     out = sdpa()
@@ -280,7 +309,24 @@ def time_kernels(fa, torch, args, kw):
         out, (qt, kt, vt), dot, retain_graph=True))
     library = {"fa_fwd": lib_fwd, "fa_bwd_dq": lib_bwd,
                "fa_bwd_dkv": lib_bwd}
-    return ms, library
+    return ms, library, (sdpa, (qt, kt, vt), dot)
+
+
+def sdpa_backend(torch, sdpa, inputs, dot):
+    """The device kernels of one SDPA forward and backward, longest first:
+    their names say which back end the inputs selected."""
+    from torch.autograd import DeviceType
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(sdpa(), inputs, dot)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:80]] = (names.get(e.name[:80], 0.0)
+                                  + e.time_range.elapsed_us())
+    return [n for n, _ in sorted(names.items(), key=lambda x: -x[1])[:3]]
 
 
 def small_model_check(torch, hvd_llama):
@@ -319,11 +365,12 @@ def small_model_check(torch, hvd_llama):
     return err
 
 
-def expected_buckets(model, threshold):
-    """Bucket count for the model's f32 parameters, packed in reverse order
+def expected_buckets(model, threshold, itemsize=4):
+    """Bucket count for the model's parameters on a wire of ``itemsize``
+    bytes an element (4: f32; 2: bf16 compression), packed in reverse order
     up to ``threshold`` bytes (0: one per tensor), computed here apart from
     the port's planner."""
-    sizes = [p.numel() * 4 for p in model.parameters()]
+    sizes = [p.numel() * itemsize for p in model.parameters()]
     if threshold == 0:
         return len(sizes)
     count, fill = 0, None
@@ -345,9 +392,16 @@ GROUPS = (("B1 fa_fwd", ("fa_fwd_kernel",)),
           ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
           ("foreach (AdamW)", ("multi_tensor_apply",)),
           ("nccl", ("nccl",)))
+#: The groups of the ResNet and BERT steps: cuDNN's convolutions (before
+#: the matmul group, whose fragments their names share), and the
+#: reductions and elementwise passes of BatchNorm, LayerNorm and casts.
+MODEL_GROUPS = (GROUPS[:5] + (("conv (cuDNN)", ("fprop", "dgrad", "wgrad",
+                                                "conv")),)
+                + GROUPS[5:] + (("reductions", ("reduce_kernel",)),
+                                ("elementwise", ("elementwise",))))
 
 
-def device_breakdown(prof, wall_s):
+def device_breakdown(prof, wall_s, groups=GROUPS):
     """The profiled step's device time: each kernel group's ms and share of
     the summed kernel time, the rest with its largest kernels, and the
     device's idle share of the step's host-clock wall time (1 - union of
@@ -357,11 +411,11 @@ def device_breakdown(prof, wall_s):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         return "the profiler saw no device time: not measured"
-    ms = dict.fromkeys([g for g, _ in GROUPS] + ["other"], 0.0)
+    ms = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
     other, spans = {}, []
     for e in kernels:
         t = e.time_range.elapsed_us() / 1e3
-        group = next((g for g, frags in GROUPS
+        group = next((g for g, frags in groups
                       if any(f in e.name.lower() for f in frags)), "other")
         ms[group] += t
         if group == "other":
@@ -694,6 +748,219 @@ def adasum_phase(torch, card):
             "combine": sum(x[1] for x in r0["launches"])}
 
 
+def run_steps(torch, step, state, batch, labels, n_steps):
+    """``n_steps`` train steps, the last under ``torch.profiler``; returns
+    the state, the losses, each step's host-clock seconds and the profile."""
+    losses, times = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if i == n_steps - 1 else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, batch, labels)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t)
+    return state, losses, times, prof
+
+
+def check_allreduces(launches, model, n_steps, itemsize=4):
+    """One all-reduce per fusion bucket per step in a world of one, where
+    the gradient buckets are the step's only all-reduces (the loss and the
+    BatchNorm statistics are averaged only across more than one rank, and
+    SyncBatchNorm syncs nothing)."""
+    from horovod_tpu_torch.core.config import Config
+    threshold = Config.from_env().fusion_threshold_bytes
+    want = expected_buckets(model, threshold, itemsize)
+    if launches != want * n_steps:
+        raise AssertionError(
+            f"{launches} all-reduces launched in {n_steps} steps, expected "
+            f"{want} a step for HOROVOD_FUSION_THRESHOLD={threshold}")
+    return want
+
+
+def resnet_phase(torch, card):
+    """The ``resnet`` phase (module doc)."""
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives.ops import allreduce_async_
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.train import (batch_stats, create_train_state,
+                                         make_train_step)
+    hvd.init()
+    model = ResNet50(stem="space_to_depth", sync_batch_norm=True, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, F.cross_entropy)
+    batch = 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn((batch, 224, 224, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    before = [b.clone() for b in batch_stats(model)]
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 4
+    allreduce_async_.launches = 0
+    state, losses, times, prof = run_steps(torch, step, state, images,
+                                           labels, n_steps)
+    launches = allreduce_async_.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"resnet: non-finite loss: {losses}")
+    buckets = check_allreduces(launches, model, n_steps)
+    stats = batch_stats(model)
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(stats, before))
+    if moved != len(stats) or not all(bool(b.isfinite().all())
+                                      for b in stats):
+        raise AssertionError(f"resnet: {moved} of {len(stats)} BatchNorm "
+                             "running statistics moved, or one is not "
+                             "finite")
+    timed = times[1:-1]
+    step_s = sorted(timed)[len(timed) // 2]
+    log("resnet", f"ResNet-50 (space_to_depth stem, SyncBatchNorm, bf16, "
+                  f"channels_last), images "
+                  f"{' x '.join(map(str, images.shape))}, "
+                  f"{hvd.size()} rank(s) over NCCL, SGD(0.1, momentum 0.9): "
+                  f"losses {losses}; step {step_s * 1e3:.1f} ms (first "
+                  f"{times[0] * 1e3:.1f} ms); {batch / step_s:.1f} "
+                  f"images/s/GPU; {buckets} buckets, {launches} all-reduces "
+                  f"launched; {len(stats)} BatchNorm statistics moved, "
+                  f"finite; peak {peak_gb:.1f} GB; on {card}")
+    log("resnet", f"step {n_steps} under torch.profiler, "
+                  f"{times[-1] * 1e3:.1f} ms on the host clock: "
+                  f"{device_breakdown(prof, times[-1], MODEL_GROUPS)}")
+    hvd.shutdown()
+
+
+def bert_batch(torch, vocab, B=8, T=512, seed=0):
+    """Seeded tokens, the key-padding mask (row i holds 512 - 32 i real
+    tokens) and MLM labels: 15 % of the real positions carry a token, every
+    other position -1 (``benchmarks/bert.py``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, vocab, (B, T), generator=gen, device="cuda")
+    lengths = torch.tensor([T - T // 16 * i for i in range(B)],
+                           device="cuda")
+    mask = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+    raw = torch.randint(0, vocab, (B, T), generator=gen, device="cuda")
+    picked = (torch.rand((B, T), generator=gen, device="cuda") < 0.15) & mask
+    return tokens, mask, torch.where(picked, raw, -1), lengths.tolist()
+
+
+def bert_phase(torch, card):
+    """The ``bert`` phase (module doc)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives.ops import allreduce_async_
+    from horovod_tpu_torch.models.bert import Bert, bert_large
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (create_train_state,
+                                         make_train_step, masked_label_loss)
+    hvd.init()
+    cfg = bert_large()
+    model = Bert(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, masked_label_loss)
+    tokens, mask, labels, lengths = bert_batch(torch, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 4
+    fa.reset_launch_counts()
+    allreduce_async_.launches = 0
+    state, losses, times, prof = run_steps(torch, step, state,
+                                           (tokens, mask), labels, n_steps)
+    launches = {name: fn.launches for name, fn in fa.KERNELS.items()}
+    allreduces = allreduce_async_.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bert: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bert: loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n != cfg.n_layers * n_steps:
+            raise AssertionError(f"bert: {name} launched {n} times in "
+                                 f"{n_steps} steps of a {cfg.n_layers}-layer "
+                                 "model, expected once a layer a step")
+    buckets = check_allreduces(allreduces, model, n_steps, itemsize=2)
+    timed = times[1:-1]
+    step_s = sorted(timed)[len(timed) // 2]
+    n_tok = tokens.numel()
+    log("bert", f"BERT-Large, {cfg.n_layers} layers, {tokens.shape[0]} x "
+                f"{tokens.shape[1]} tokens, real lengths {lengths}, "
+                f"{hvd.size()} rank(s) over NCCL, AdamW(1e-4), bf16 wire: "
+                f"losses {losses}; step {step_s * 1e3:.1f} ms (first "
+                f"{times[0] * 1e3:.1f} ms); {n_tok / step_s:.0f} "
+                f"tokens/s/GPU; kernel launches {launches}; {buckets} "
+                f"buckets, {allreduces} all-reduces launched; peak "
+                f"{peak_gb:.1f} GB; on {card}")
+    log("bert", f"step {n_steps} under torch.profiler, "
+                f"{times[-1] * 1e3:.1f} ms on the host clock: "
+                f"{device_breakdown(prof, times[-1], MODEL_GROUPS)}")
+    hvd.shutdown()
+
+
+def bert_kernels_phase(torch, card, fmt):
+    """The ``bert-kernels`` phase (module doc)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    B, T, H, D = 8, 512, 16, 64
+    lengths = [T - T // 16 * i for i in range(B)]
+    shape = dict(B=B, Tq=T, Tk=T, H=H, D=D, causal=False, lengths=lengths,
+                 seed=3)
+    errs, args, kw = kernel_case(fa, torch, dtype=torch.bfloat16, **shape)
+    f32_errs, _, _ = kernel_case(fa, torch, dtype=torch.float32, **shape)
+    log("bert-kernels", f"agree with plain at B={B}, T={T}, H={H}, D={D}, "
+                        f"not causal, real lengths {lengths}: bf16 "
+                        f"{fmt(errs)}; f32 {fmt(f32_errs)}")
+    ms, library, sdpa = time_kernels(fa, torch, args, kw)
+    backend = sdpa_backend(torch, *sdpa)
+    for name in fa.KERNELS:
+        bnd = bound(name, B, H, T, T, D, False, 2)
+        tflops = fa_flops(name, B, H, T, T, D, False) / (
+            ms[name][0] * 1e-3) / 1e12
+        log("bert-kernels", f"{name}: {ms[name][0]:.4f} ms, {tflops:.1f} "
+                            f"TFLOP/s, {bnd[0] / ms[name][0]:.1%} of its "
+                            f"bound ({bnd[0]:.4f} ms by {bnd[1]}); plain "
+                            f"{ms[name][1]:.3f} ms; SDPA with the mask "
+                            f"{library[name]:.4f} ms; on {card}")
+    log("bert-kernels", f"SDPA with an additive bf16 mask runs {backend}")
+
+
+def crossover_phase(torch, card):
+    """The ``crossover`` phase (module doc): the shortest T of the sweep
+    from which flash stays faster."""
+    from horovod_tpu_torch.models.bert import attention
+    B, H, D = 8, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, faster = [], []
+    for T in (128, 256, 512, 1024):
+        mk = lambda: torch.randn((B, T, H, D), generator=gen, device="cuda",
+                                 dtype=torch.bfloat16)
+        q, k, v = (mk().requires_grad_() for _ in range(3))
+        do = mk()
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < torch.tensor([T - T // 16 * i for i in range(B)],
+                               device="cuda")[:, None])
+        t = {}
+        for flash in (False, True):
+            def run():
+                o = attention(q, k, v, mask, use_flash=flash,
+                              dtype=torch.bfloat16)
+                torch.autograd.grad(o, (q, k, v), do)
+            t[flash] = time_ms(run, 10)
+        rows.append(f"T={T}: flash {t[True]:.3f} ms, materialised "
+                    f"{t[False]:.3f} ms ({t[False] / t[True]:.2f}x)")
+        faster.append((T, t[True] < t[False]))
+    cross = next((T for i, (T, _) in enumerate(faster)
+                  if all(f for _, f in faster[i:])), None)
+    log("crossover", f"one BERT-Large layer's attention, forward + backward, "
+                     f"B={B}, H={H}, D={D}, bf16, ragged mask: "
+                     f"{'; '.join(rows)}; flash faster from T={cross}; on "
+                     f"{card}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -744,7 +1011,7 @@ def main():
                    f"training shape f32 {fmt(f32_errs)}; small "
                    f"f32/bias/ragged {fmt(small_errs)}; small bf16/bias/"
                    f"ragged/no-key row {fmt(small_bf16_errs)}")
-    ms, library = time_kernels(fa, torch, args, kw)
+    ms, library, _ = time_kernels(fa, torch, args, kw)
     bounds = {name: bound(name, 2, 32, 2048, 2048, 128, True, 2)
               for name in fa.KERNELS}
     for name in fa.KERNELS:
@@ -778,17 +1045,8 @@ def main():
     n_steps = 4  # the last one under the profiler
     fa.reset_launch_counts()
     allreduce_async_.launches = 0
-    losses, times = [], []
-    for i in range(n_steps):
-        torch.cuda.synchronize()
-        with (torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-              if i == n_steps - 1 else contextlib.nullcontext()) as prof:
-            t = time.perf_counter()
-            state, loss = step(state, tokens, tokens)
-            losses.append(loss.item())
-            times.append(time.perf_counter() - t)
+    state, losses, times, prof = run_steps(torch, step, state, tokens,
+                                           tokens, n_steps)
     launches = {name: fn.launches for name, fn in fa.KERNELS.items()}
     allreduces = allreduce_async_.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -801,13 +1059,7 @@ def main():
             raise AssertionError(f"{name} launched {n} times in {n_steps} "
                                  f"steps of a {cfg.n_layers}-layer model")
     threshold = Config.from_env().fusion_threshold_bytes
-    want = expected_buckets(model, threshold)
-    # A world of one: the gradient buckets are the steps' only all-reduces
-    # (the loss is averaged only across more than one rank).
-    if allreduces != want * n_steps:
-        raise AssertionError(
-            f"{allreduces} all-reduces launched in {n_steps} steps, expected "
-            f"{want} a step for HOROVOD_FUSION_THRESHOLD={threshold}")
+    want = check_allreduces(allreduces, model, n_steps)
     timed = times[1:-1]
     step_s = sorted(timed)[len(timed) // 2]
     log("train", f"llama3_8b width, 2 layers, {hvd.size()} rank(s) over "
@@ -856,6 +1108,15 @@ def main():
     del a, b, out, stats
     gc.collect()
     torch.cuda.empty_cache()
+
+    resnet_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_kernels_phase(torch, card, fmt)
+    crossover_phase(torch, card)
     errs.update(fused_errs)
     ms.update(fms)
     library.update(flib)

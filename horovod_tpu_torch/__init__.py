@@ -21,5 +21,5 @@ from .core.context_api import (add_process_set, cross_rank, cross_size,
                                nccl_built, rank, remove_process_set,
                                shutdown, size)
 from .core.exceptions import HorovodInternalError, NotInitializedError
-from .optimizer import (DistributedOptimizer, broadcast_optimizer_state,
-                        broadcast_parameters)
+from .optimizer import (DistributedOptimizer, SyncBatchNorm,
+                        broadcast_optimizer_state, broadcast_parameters)

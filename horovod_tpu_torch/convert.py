@@ -1,4 +1,5 @@
-"""Carry Llama parameters between the JAX package and the port.
+"""Carry Llama, ResNet and BERT parameters between the JAX package and the
+port.
 
 :func:`llama_params_from_flax` turns a flax parameter tree (numpy or JAX
 leaves) of ``horovod_tpu.models.llama.Llama`` into a ``state_dict`` of
@@ -9,10 +10,16 @@ Layout: flax stores dense kernels ``[in, out]`` (``x @ W``); the port keeps
 ``nn.Linear``'s ``[out, in]``, so every dense kernel, the LM head included,
 is transposed on the way across. Both flax layer layouts are read: unrolled
 ``block_i`` subtrees, and scanned ``layers/block`` with ``[L, ...]`` leaves.
+
+The ResNet and BERT pairs (:func:`resnet_params_from_flax`,
+:func:`bert_params_from_flax` and their inverses) do the same for those
+models; ResNet's also carry the ``batch_stats`` collection (the running
+statistics), and its conv kernels go from flax's HWIO to torch's OIHW.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -92,3 +99,153 @@ def _stack_trees(trees):
     if isinstance(trees[0], dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
     return np.stack(trees)
+
+
+# ------------------------------------------------------------------ ResNet
+
+def _conv(k) -> np.ndarray:
+    """A flax conv kernel HWIO -> the port's OIHW."""
+    return _np(k).transpose(3, 2, 0, 1)
+
+
+def _resnet_blocks(tree: Dict):
+    """The block subtrees of a flax ResNet tree in order: ``ResNetBlock_i``,
+    ``BottleneckResNetBlock_i``, or with ``remat_blocks`` the same names
+    with a ``Checkpoint`` prefix."""
+    found = {}
+    for key in tree:
+        m = re.fullmatch(r"\w*ResNetBlock_(\d+)", key)
+        if m:
+            found[int(m.group(1))] = tree[key]
+    return [found[i] for i in range(len(found))]
+
+
+# flax's auto-named layers of a block -> the port's, in block order.
+_BLOCK_CONVS = ("Conv_0", "Conv_1", "Conv_2")
+_BLOCK_NORMS = ("BatchNorm_0", "BatchNorm_1", "BatchNorm_2")
+
+
+def resnet_params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ResNet's variables, ``{"params": ..., "batch_stats": ...}``
+    (``batch_stats`` may be absent) -> the port's ``state_dict`` (f32 CPU
+    tensors): conv kernels HWIO -> OIHW, the Dense kernel transposed, BN
+    ``scale``/``bias`` -> ``weight``/``bias`` and ``mean``/``var`` ->
+    ``running_mean``/``running_var``."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    sd = {}
+
+    def norm(pre, pt, st):
+        sd[pre + "weight"] = _np(pt["scale"])
+        sd[pre + "bias"] = _np(pt["bias"])
+        if st:
+            sd[pre + "running_mean"] = _np(st["mean"])
+            sd[pre + "running_var"] = _np(st["var"])
+
+    stem = "conv_init_s2d" if "conv_init_s2d" in p else "conv_init"
+    sd["conv_init.weight"] = _conv(p[stem]["kernel"])
+    norm("bn_init.", p["bn_init"], s.get("bn_init"))
+    stat_blocks = _resnet_blocks(s) if s else None
+    for i, b in enumerate(_resnet_blocks(p)):
+        bs = stat_blocks[i] if stat_blocks else {}
+        pre = f"blocks.{i}."
+        for j, (c, n) in enumerate(zip(_BLOCK_CONVS, _BLOCK_NORMS)):
+            if c in b:
+                sd[pre + f"conv{j + 1}.weight"] = _conv(b[c]["kernel"])
+                norm(pre + f"bn{j + 1}.", b[n], bs.get(n))
+        if "conv_proj" in b:
+            sd[pre + "conv_proj.weight"] = _conv(b["conv_proj"]["kernel"])
+            norm(pre + "norm_proj.", b["norm_proj"], bs.get("norm_proj"))
+    sd["head.weight"] = _np(p["Dense_0"]["kernel"]).T
+    sd["head.bias"] = _np(p["Dense_0"]["bias"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def resnet_params_to_flax(state_dict: Dict[str, torch.Tensor],
+                          model) -> Dict:
+    """The port's ``state_dict`` of ``model`` (a port ``ResNet``) -> flax
+    variables ``{"params": ..., "batch_stats": ...}`` of numpy arrays, named
+    as the JAX ResNet of the same configuration names them."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    params, stats = {}, {}
+
+    def norm(pre):
+        return ({"scale": sd[pre + "weight"], "bias": sd[pre + "bias"]},
+                {"mean": sd[pre + "running_mean"],
+                 "var": sd[pre + "running_var"]})
+
+    conv = lambda k: sd[k].transpose(2, 3, 1, 0)
+    stem = ("conv_init_s2d" if model.stem == "space_to_depth"
+            and not model.small_images else "conv_init")
+    params[stem] = {"kernel": conv("conv_init.weight")}
+    params["bn_init"], stats["bn_init"] = norm("bn_init.")
+    name = type(model.blocks[0]).__name__
+    if model.remat_blocks:
+        name = "Checkpoint" + name
+    for i, block in enumerate(model.blocks):
+        pre, bp, bs = f"blocks.{i}.", {}, {}
+        for j, (c, n) in enumerate(zip(_BLOCK_CONVS, _BLOCK_NORMS)):
+            if hasattr(block, f"conv{j + 1}"):
+                bp[c] = {"kernel": conv(pre + f"conv{j + 1}.weight")}
+                bp[n], bs[n] = norm(pre + f"bn{j + 1}.")
+        if block.conv_proj is not None:
+            bp["conv_proj"] = {"kernel": conv(pre + "conv_proj.weight")}
+            bp["norm_proj"], bs["norm_proj"] = norm(pre + "norm_proj.")
+        params[f"{name}_{i}"], stats[f"{name}_{i}"] = bp, bs
+    params["Dense_0"] = {"kernel": sd["head.weight"].T,
+                         "bias": sd["head.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+# -------------------------------------------------------------------- BERT
+
+_BERT_DENSE = ("wq", "wk", "wv", "wo", "ffn_in", "ffn_out")
+_BERT_NORMS = ("attn_norm", "ffn_norm")
+
+
+def bert_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """flax BERT ``params`` (optionally under a ``"params"`` key) -> the
+    port's ``state_dict`` (f32 CPU tensors); dense kernels transposed."""
+    p = params.get("params", params)
+    sd = {"tok_embedding": _np(p["tok_embedding"]),
+          "pos_embedding": _np(p["pos_embedding"])}
+
+    def dense(pre, t):
+        sd[pre + "weight"] = _np(t["kernel"]).T
+        sd[pre + "bias"] = _np(t["bias"])
+
+    def norm(pre, t):
+        sd[pre + "scale"] = _np(t["scale"])
+        sd[pre + "bias"] = _np(t["bias"])
+
+    norm("embed_norm.", p["embed_norm"])
+    for i in range(cfg.n_layers):
+        layer, pre = p[f"layer_{i}"], f"layers.{i}."
+        for n in _BERT_DENSE:
+            dense(pre + n + ".", layer[n])
+        for n in _BERT_NORMS:
+            norm(pre + n + ".", layer[n])
+    dense("mlm_transform.", p["mlm_transform"])
+    norm("mlm_norm.", p["mlm_norm"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def bert_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The port's ``state_dict`` -> a flax BERT parameter tree of numpy
+    arrays."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    dense = lambda pre: {"kernel": sd[pre + "weight"].T,
+                         "bias": sd[pre + "bias"]}
+    norm = lambda pre: {"scale": sd[pre + "scale"], "bias": sd[pre + "bias"]}
+    out = {"tok_embedding": sd["tok_embedding"],
+           "pos_embedding": sd["pos_embedding"],
+           "embed_norm": norm("embed_norm."),
+           "mlm_transform": dense("mlm_transform."),
+           "mlm_norm": norm("mlm_norm.")}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        out[f"layer_{i}"] = {**{n: dense(pre + n + ".") for n in _BERT_DENSE},
+                             **{n: norm(pre + n + ".") for n in _BERT_NORMS}}
+    return out

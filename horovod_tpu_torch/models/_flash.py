@@ -10,10 +10,13 @@ import os
 
 import torch
 
-# Placeholder: 512 is the crossover measured for the Pallas kernel on a TPU
-# v5e (BERT-Large, seq 512). It has not yet been measured for the CUDA
-# kernels on the H100; the port's own bench will set it.
-AUTO_MIN_SEQ = 512
+# The shortest sequence measured at which the flash kernels beat the
+# materialised softmax: one BERT-Large layer's attention (B=8, H=16, D=64,
+# bf16, a ragged key-padding mask), forward and backward, on an NVIDIA H100
+# 80GB HBM3 at 700 W, ``chip_smoke.py`` phase ``crossover``: flash 0.964 ms
+# against 1.337 ms at T=128, and faster at 256, 512 and 1024 too (1.40x,
+# 1.80x, 3.69x). Shorter sequences were not measured.
+AUTO_MIN_SEQ = 128
 
 
 def resolve_flash(use_flash, seq_len=None, device=None) -> bool:

@@ -76,8 +76,10 @@ def _default_device(device) -> torch.device:
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     """flax's ``lecun_normal``: a normal truncated at two standard
-    deviations, rescaled so the variance is ``1 / fan_in``."""
-    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+    deviations, rescaled so the variance is ``1 / fan_in``, the product of
+    the weight's dims after the first (a Linear's ``in``, a conv's ``in *
+    kh * kw``)."""
+    std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 

@@ -1,4 +1,5 @@
-"""DistributedOptimizer and the startup broadcasts."""
+"""DistributedOptimizer, SyncBatchNorm and the startup broadcasts."""
 
 from .distributed import DistributedOptimizer
 from .functions import broadcast_optimizer_state, broadcast_parameters
+from .sync_batch_norm import SyncBatchNorm

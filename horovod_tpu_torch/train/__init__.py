@@ -1,4 +1,5 @@
 """Training steps and losses."""
 
-from .dp import TrainState, create_train_state, make_train_step
-from .losses import next_token_loss
+from .dp import TrainState, batch_stats, create_train_state, make_train_step
+from .losses import masked_label_loss, mlm_loss, next_token_loss
+from .step_builder import accumulate_gradients

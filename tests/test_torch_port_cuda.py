@@ -19,7 +19,12 @@
   plain versions on edge cases: n = 65,536 and 1,000,003, a = 0, a = b,
   orthogonal vectors, and slices misaligned by the same and by different
   offsets (tolerances in the test).
+- B1, B2 and B3 at BERT-Large's attention shape (8 x 512 tokens, 16 heads
+  of 64, not causal, a ragged key-padding bias), in bf16 and f32.
 - The bf16 LM head's cuBLAS products against its CPU version.
+- ``ResNetTiny`` with SyncBatchNorm over NCCL on 2 and 4 GPUs against one
+  process on the whole batch, with its all-reduces counted (``-k
+  sync_batch_norm``).
 - ``DistributedOptimizer(AdamW, op=Adasum)`` over NCCL on 2 and on 4 GPUs
   (``-k adasum``): log2(n) launches of B4 and B5 per step, ranks
   bit-identical, and rank 0's first combined gradient held to the plain
@@ -114,9 +119,26 @@ def _close(what, got, ref):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernels_match_plain_versions(cuda, case):
-    Tq, Tk, H, D, dtype, causal, lengths = CASES[case]
+    check_kernels(2, *CASES[case])
+
+
+#: BERT-Large's attention (``models/bert.py``) at 8 x 512 tokens: 16 heads
+#: of 64, not causal, a key-padding bias whose rows hold 512, 480, ..., 288
+#: real keys.
+BERT_LENGTHS = tuple(512 - 32 * i for i in range(8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_kernels_match_plain_versions_at_bert_shape(cuda, dtype):
+    check_kernels(8, 512, 512, 16, 64, dtype, False, BERT_LENGTHS)
+
+
+def check_kernels(B, Tq, Tk, H, D, dtype, causal, lengths):
+    """B1, B2 and B3 against their plain versions on one case, each launched
+    once (module doc's tolerances)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mk = lambda T: torch.randn((2, T, H, D), generator=gen, device="cuda",
+    mk = lambda T: torch.randn((B, T, H, D), generator=gen, device="cuda",
                                dtype=dtype)
     q, k, v, do = mk(Tq), mk(Tk), mk(Tk), mk(Tq)
     bias = None
@@ -333,12 +355,57 @@ _WORKER = textwrap.dedent("""
 """)
 
 
-def run_world(out_dir, n, device, opt_name):
-    """Run the worker in a world of ``n`` processes with the optimizer
+_RESNET_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.models.resnet import ResNetTiny
+    from horovod_tpu_torch.train import (batch_stats, create_train_state,
+                                         make_train_step)
+
+    out_dir, device, opt_name = sys.argv[1:4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device=device)
+    rank, size = hvd.rank(), hvd.size()
+    model = ResNetTiny(num_classes=10, dtype=torch.float32,
+                       sync_batch_norm=True, seed=rank)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, F.cross_entropy)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn((8, 32, 32, 3), generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    per = 8 // size
+    own = slice(rank * per, (rank + 1) * per)
+    losses, launches = [], []
+    for s in range(2):
+        ops.allreduce_async_.launches = 0
+        state, loss = step(state, images[own].to(hvd.device()),
+                           labels[own].to(hvd.device()))
+        losses.append(loss.item())
+        launches.append(ops.allreduce_async_.launches)
+    norms = sum(1 for m in model.modules() if isinstance(m, hvd.SyncBatchNorm))
+    out = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    np.savez(f"{out_dir}/{opt_name}_w{size}_r{rank}.npz",
+             losses=np.asarray(losses), launches=np.asarray(launches),
+             counts=np.asarray([len(opt.buckets), norms,
+                                len(batch_stats(model))]), **out)
+    hvd.shutdown()
+""")
+
+
+def run_world(out_dir, n, device, opt_name, worker=_WORKER):
+    """Run ``worker`` in a world of ``n`` processes with the optimizer
     ``opt_name``; return each rank's saved arrays."""
     script = os.path.join(out_dir, "worker.py")
     with open(script, "w") as f:
-        f.write(_WORKER)
+        f.write(worker)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -392,7 +459,7 @@ def test_dp_across_gpus_matches_one_process(cuda, tmp_path, opt_name):
 
 
 def _params(saved):
-    return [k for k in saved if k not in ("losses", "launches")
+    return [k for k in saved if k not in ("losses", "launches", "counts")
             and not k.startswith(("grad", "local"))]
 
 
@@ -492,3 +559,34 @@ def test_adasum_across_gpus_matches_plain_butterfly(cuda, tmp_path, n):
     tol = 1e-5 * (ref.abs() + ref.square().mean().sqrt())
     assert ((got - ref).abs() <= tol).all(), \
         ((got - ref).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sync_batch_norm_resnet_across_gpus_matches_one_process(cuda,
+                                                                tmp_path, n):
+    """``ResNetTiny`` with SyncBatchNorm, two SGD-momentum steps over NCCL
+    on n cards, each a shard of 8 images, against one process on all 8: the
+    batch statistics are global on both sides, so parameters and running
+    statistics agree within 1e-5 (summation order; SGD is linear in the
+    gradient) and the ranks end bit-identical. Each step launches one
+    all-reduce per gradient bucket, one for the loss, one for the running
+    statistics (one bucket) and two per BatchNorm layer (its statistics
+    forward, their cotangent backward); one process launches only the
+    gradient buckets."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} GPUs")
+    ranks = run_world(str(tmp_path), n, "cuda", "resnet", _RESNET_WORKER)
+    (single,) = run_world(str(tmp_path), 1, "cuda", "resnet", _RESNET_WORKER)
+    buckets, norms, stats = ranks[0]["counts"].tolist()
+    assert stats == 2 * norms
+    assert ranks[0]["launches"].tolist() == [buckets + 2 + 2 * norms] * 2
+    assert single["launches"].tolist() == [buckets] * 2
+    for other in ranks[1:]:
+        for name in _params(ranks[0]):
+            np.testing.assert_array_equal(other[name], ranks[0][name],
+                                          err_msg=name)
+    np.testing.assert_allclose(ranks[0]["losses"], single["losses"],
+                               rtol=1e-5)
+    for name in _params(single):
+        np.testing.assert_allclose(ranks[0][name], single[name], rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

@@ -8,7 +8,14 @@
   ``make_train_step`` on the 8-device CPU mesh, same global batch: the
   parameters agree within 1e-5 (and the world's reduce ops and broadcast
   give exact answers);
-- the optimizer's reduction options in a world of one.
+- the optimizer's reduction options in a world of one;
+- in the same world, two SGD-momentum steps of ``ResNetTiny`` with
+  SyncBatchNorm against the mesh: parameters and running statistics within
+  1e-5;
+- ``accum_steps``: the plain step's update with one all-reduce per bucket,
+  BatchNorm statistics threaded through the microbatches as the JAX
+  package's ``accumulate_gradients`` threads them, and the reference's
+  "per-device" error for a batch it does not divide.
 """
 
 import dataclasses
@@ -35,6 +42,7 @@ from horovod_tpu.core import config as jconfig
 from horovod_tpu.core import context_api as jctx
 from horovod_tpu.core import telemetry as jtelemetry
 from horovod_tpu.models import llama as jllama
+from horovod_tpu.models import resnet as jresnet
 from horovod_tpu.optimizer import distributed
 from horovod_tpu.train import create_train_state, make_train_step
 from horovod_tpu.train.gspmd import next_token_loss as j_next_token_loss
@@ -43,7 +51,9 @@ import horovod_tpu_torch as thvd
 from horovod_tpu_torch import convert
 from horovod_tpu_torch.collectives import ops as tops
 from horovod_tpu_torch.core import config as tconfig
+from horovod_tpu_torch import train as thvd_train
 from horovod_tpu_torch.models import llama as tllama
+from horovod_tpu_torch.models import resnet as tresnet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,6 +163,7 @@ _WORKER = textwrap.dedent("""
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.llama import Llama, llama_tiny
+    from horovod_tpu_torch.models.resnet import ResNetTiny
     from horovod_tpu_torch.train import (create_train_state, make_train_step,
                                          next_token_loss)
 
@@ -187,6 +198,31 @@ _WORKER = textwrap.dedent("""
              layout=np.asarray([rank, size, hvd.local_rank(),
                                 hvd.local_size(), hvd.cross_rank(),
                                 hvd.cross_size()]), **out)
+
+    # ResNetTiny with SyncBatchNorm, two SGD-momentum steps.
+    data = np.load(f"{data_dir}/resnet_init.npz")
+    model = ResNetTiny(num_classes=10, dtype=torch.float32,
+                       sync_batch_norm=True, device="cpu", seed=rank)
+    if rank == 0:
+        model.load_state_dict({k: torch.from_numpy(data[k])
+                               for k in data.files
+                               if k not in ("images", "labels")})
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, torch.nn.functional.cross_entropy)
+    per = data["images"].shape[0] // size
+    own = slice(rank * per, (rank + 1) * per)
+    images = torch.from_numpy(data["images"][own])
+    labels = torch.from_numpy(data["labels"][own])
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, images, labels)
+        losses.append(loss.item())
+    out = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    np.savez(f"{data_dir}/resnet_rank{rank}.npz", losses=np.asarray(losses),
+             **out)
     hvd.shutdown()
 """)
 
@@ -197,7 +233,46 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_two_adamw_steps_match_jax_mesh(tmp_path):
+def _jax_resnet_steps(tmp_path):
+    """``ResNetTiny`` with SyncBatchNorm (``axis_name`` the rank axis), two
+    steps of ``make_train_step`` with SGD and momentum on the 8-device mesh;
+    writes the initial variables and the batch for the port's world and
+    returns the final variables and the losses."""
+    model = jresnet.ResNetTiny(num_classes=10, dtype=jnp.float32,
+                               axis_name=hvd.RANK_AXIS)
+    rng = np.random.RandomState(5)
+    images = rng.randn(16, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, 16)
+    dopt = distributed(optax.sgd(0.1, momentum=0.9))
+    state = create_train_state(model, jax.random.PRNGKey(0),
+                               jnp.asarray(images[:1]), dopt)
+    init = convert.resnet_params_from_flax(
+        {"params": state.params, "batch_stats": state.batch_stats})
+    np.savez(tmp_path / "resnet_init.npz", images=images, labels=labels,
+             **{k: v.numpy() for k, v in init.items()})
+
+    def xent(logits, y):
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, y).mean()
+
+    step = make_train_step(model, dopt, xent)
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, jnp.asarray(images), jnp.asarray(labels))
+        losses.append(float(loss))
+    return {"params": state.params, "batch_stats": state.batch_stats}, losses
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One 2-process gloo world for the module: two AdamW steps of
+    ``llama_tiny``, then two SGD steps of ``ResNetTiny`` with SyncBatchNorm,
+    each rank on its half of the global batch; the JAX package runs the same
+    steps on the 8-device mesh meanwhile. Returns both sides' results."""
+    tmp_path = tmp_path_factory.mktemp("dp_world")
+    # A module fixture runs before conftest's per-test context: make one.
+    hvd.shutdown()
+    hvd.init()
     cfg = jllama.llama_tiny()
     model = jllama.Llama(cfg)
     tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (8, 16))
@@ -208,6 +283,7 @@ def test_two_adamw_steps_match_jax_mesh(tmp_path):
     init = convert.llama_params_from_flax(state.params, tcfg)
     np.savez(tmp_path / "init.npz", tokens=tokens,
              **{k: v.numpy() for k, v in init.items()})
+    want_resnet, resnet_losses = _jax_resnet_steps(tmp_path)
 
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_NUM_PROCESSES="2",
@@ -227,11 +303,20 @@ def test_two_adamw_steps_match_jax_mesh(tmp_path):
         jlosses.append(float(loss))
     want = convert.llama_params_from_flax(state.params, tcfg)
 
+    outs = []
     for p in procs:
-        out, _ = p.communicate(timeout=120)
-        assert p.returncode == 0, out
+        out, _ = p.communicate(timeout=180)
+        outs.append((p.returncode, out))
+    return {"dir": tmp_path, "outs": outs, "llama": (want, jlosses),
+            "resnet": (want_resnet, resnet_losses)}
+
+
+def test_two_adamw_steps_match_jax_mesh(world):
+    for rc, out in world["outs"]:
+        assert rc == 0, out
+    want, jlosses = world["llama"]
     for r in range(2):
-        got = np.load(tmp_path / f"rank{r}.npz")
+        got = np.load(world["dir"] / f"rank{r}.npz")
         assert list(got["layout"]) == [r, 2, r, 2, 0, 1]
         # Sum, Average, Min, Max, Product of [1, 2] over a process set, and
         # a broadcast from rank 1.
@@ -240,6 +325,25 @@ def test_two_adamw_steps_match_jax_mesh(tmp_path):
         for name, w in want.items():
             np.testing.assert_allclose(got[name], w.numpy(), rtol=1e-5,
                                        atol=1e-5, err_msg=name)
+
+
+def test_two_sgd_steps_with_sync_batch_norm_match_jax_mesh(world):
+    """``ResNetTiny`` with SyncBatchNorm across 2 ranks against
+    ``make_train_step`` on the 8-device mesh: parameters and the running
+    statistics (averaged across the ranks after the update, as the JAX
+    step averages its ``batch_stats``) within 1e-5 after two steps, and the
+    ranks bit-identical."""
+    for rc, out in world["outs"]:
+        assert rc == 0, out
+    variables, jlosses = world["resnet"]
+    want = convert.resnet_params_from_flax(variables)
+    got = [np.load(world["dir"] / f"resnet_rank{r}.npz") for r in range(2)]
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[1][name], got[0][name],
+                                      err_msg=name)
+        np.testing.assert_allclose(got[0][name], w.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(got[0]["losses"], jlosses, rtol=1e-5)
 
 
 def _grads_after(opt_kwargs, passes, seed=0):
@@ -348,3 +452,109 @@ def test_adamw_weight_decay_matches_optax_only_when_set():
     np.testing.assert_allclose(torch_step(weight_decay=1e-4), want,
                                rtol=1e-6, atol=1e-6)
     assert np.abs(torch_step() - want).max() > 1e-4
+
+
+def _mlp_step(accum_steps, batch=16, seed=0):
+    """One DistributedOptimizer(SGD) step of a small MLP in a world of one,
+    plain or with ``accum_steps`` microbatches; returns the loss, the
+    parameters, the bucket count and the all-reduces launched."""
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(12, 16), torch.nn.Tanh(),
+                                torch.nn.Linear(16, 5))
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(batch, 12).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 5, batch))
+    thvd.init(device="cpu")
+    try:
+        opt = thvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            backward_passes_per_step=accum_steps or 1)
+        step = thvd_train.make_train_step(
+            model, opt, torch.nn.functional.cross_entropy,
+            accum_steps=accum_steps)
+        tops.allreduce_async_.launches = 0
+        _, loss = step(thvd_train.create_train_state(model, opt), x, y)
+        return (loss.item(), [p.detach().clone() for p in model.parameters()],
+                len(opt.buckets), tops.allreduce_async_.launches)
+    finally:
+        thvd.shutdown()
+
+
+def test_accum_step_matches_plain_and_keeps_one_allreduce_per_bucket():
+    """``accum_steps=2`` gives the plain step's update (the mean of the
+    microbatches' mean losses is the batch's mean loss) and launches one
+    all-reduce per bucket, as many as the plain step: nothing crosses ranks
+    inside the microbatch loop (the JAX package's ``dp-step-accum``
+    claim)."""
+    l1, p1, buckets, n1 = _mlp_step(None)
+    l2, p2, _, n2 = _mlp_step(2)
+    assert n1 == n2 == buckets
+    np.testing.assert_allclose(l2, l1, rtol=1e-6)
+    for a, b in zip(p1, p2):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_accum_step_rejects_indivisible_local_batch():
+    with pytest.raises(ValueError, match="per-device"):
+        _mlp_step(3, batch=16)
+
+
+def test_accum_step_needs_as_many_backward_passes_per_step():
+    thvd.init(device="cpu")
+    try:
+        model = torch.nn.Linear(4, 2)
+        opt = thvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                        lr=0.1))
+        with pytest.raises(ValueError, match="backward_passes_per_step=2"):
+            thvd_train.make_train_step(
+                model, opt, torch.nn.functional.mse_loss, accum_steps=2)
+    finally:
+        thvd.shutdown()
+
+
+def test_accum_step_threads_batch_norm_statistics_like_jax():
+    """``ResNetTiny`` with ``accum_steps=2`` in a world of one against the
+    JAX package's ``accumulate_gradients`` and one SGD step: the running
+    statistics move once a microbatch, in order, and the update is that of
+    the mean gradient, within 1e-5."""
+    from horovod_tpu.train.step_builder import accumulate_gradients
+    jmodel = jresnet.ResNetTiny(num_classes=10, dtype=jnp.float32)
+    rng = np.random.RandomState(6)
+    images = rng.randn(8, 32, 32, 3).astype(np.float32)
+    labels = rng.randint(0, 10, 8)
+    v = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(images[:1]),
+                    train=False)
+
+    def vg_fn(params, stats, x, y):
+        out, mut = jmodel.apply({"params": params, "batch_stats": stats}, x,
+                                train=True, mutable=["batch_stats"])
+        loss = optax.softmax_cross_entropy_with_integer_labels(out, y).mean()
+        return loss, mut["batch_stats"]
+
+    (loss, stats), grads = accumulate_gradients(
+        jax.value_and_grad(vg_fn, has_aux=True), v["params"],
+        v["batch_stats"], (jnp.asarray(images), jnp.asarray(labels)), 2)
+    params = jax.tree_util.tree_map(lambda p, g: p - 0.1 * g, v["params"],
+                                    grads)
+    want = convert.resnet_params_from_flax({"params": params,
+                                            "batch_stats": stats})
+
+    model = tresnet.ResNetTiny(num_classes=10, dtype=torch.float32,
+                               device="cpu")
+    model.load_state_dict(convert.resnet_params_from_flax(v))
+    thvd.init(device="cpu")
+    try:
+        opt = thvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            backward_passes_per_step=2)
+        step = thvd_train.make_train_step(
+            model, opt, torch.nn.functional.cross_entropy, accum_steps=2)
+        _, tloss = step(thvd_train.create_train_state(model, opt),
+                        torch.from_numpy(images), torch.from_numpy(labels))
+    finally:
+        thvd.shutdown()
+    np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
+    for name, t in model.state_dict().items():
+        np.testing.assert_allclose(t.numpy(), want[name].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

@@ -172,11 +172,14 @@ def test_dense_casts_like_flax_dense_bf16():
 
 def test_resolve_flash_order(monkeypatch):
     """Explicit flag, then ``HOROVOD_FLASH_ATTENTION``, then automatic:
-    kernels for CUDA tensors at T >= 512, the plain path on the CPU."""
+    kernels for CUDA tensors at T >= 128 (the crossover measured on the
+    H100), the plain path on the CPU."""
     monkeypatch.delenv("HOROVOD_FLASH_ATTENTION", raising=False)
+    assert _flash.AUTO_MIN_SEQ == 128
     assert _flash.resolve_flash(None, 4096, "cpu") is False
     assert _flash.resolve_flash(None, 4096, "cuda") is True
-    assert _flash.resolve_flash(None, 256, "cuda") is False
+    assert _flash.resolve_flash(None, 128, "cuda") is True
+    assert _flash.resolve_flash(None, 127, "cuda") is False
     assert _flash.resolve_flash(True, 16, "cpu") is True
     monkeypatch.setenv("HOROVOD_FLASH_ATTENTION", "1")
     assert _flash.resolve_flash(None, 16, "cpu") is True

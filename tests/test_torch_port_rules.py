@@ -41,7 +41,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert len(files) > 10
     pkg = REPO / "horovod_tpu_torch"
     for module in ("collectives/adasum.py", "ops/fused.py",
-                   "ops/flash_attention.py"):
+                   "ops/flash_attention.py", "models/resnet.py",
+                   "models/bert.py", "optimizer/sync_batch_norm.py",
+                   "train/step_builder.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -170,3 +172,52 @@ def test_build_digest_covers_the_included_header(tmp_path, monkeypatch):
     assert _build._digest() != before
     assert [f.name for f in _build._sources()] == ["flash_attention.cu",
                                                    "fused.cu"]
+
+
+def test_sync_batch_norm_in_a_world_of_one_issues_no_collective(monkeypatch):
+    """Where the JAX model drops the BatchNorm axis (a world of one, and
+    eval mode), SyncBatchNorm calls no collective, forward or backward; a
+    ResNet step in a world of one all-reduces only its gradient buckets."""
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.models.resnet import ResNetTiny
+    from horovod_tpu_torch.train import create_train_state, make_train_step
+    issued = []
+    real = ops.dist.all_reduce
+    monkeypatch.setattr(ops.dist, "all_reduce",
+                        lambda *a, **k: issued.append(a[0].shape)
+                        or real(*a, **k))
+    thvd.init(device="cpu")
+    try:
+        bn = thvd.SyncBatchNorm(3, device="cpu")
+        x = torch.randn(4, 3, 5, 5, requires_grad=True)
+        bn(x).square().sum().backward()
+        bn.eval()
+        bn(x).sum().backward()
+        assert issued == []
+        model = ResNetTiny(num_classes=10, dtype=torch.float32,
+                           sync_batch_norm=True, device="cpu")
+        opt = thvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                        lr=0.1))
+        step = make_train_step(model, opt, torch.nn.functional.cross_entropy)
+        step(create_train_state(model, opt), torch.randn(2, 8, 8, 3),
+             torch.tensor([1, 2]))
+        assert len(issued) == len(opt.buckets)
+    finally:
+        thvd.shutdown()
+
+
+@pytest.mark.parametrize("make", ["resnet", "bert"])
+def test_models_default_to_the_card(make):
+    """Without a device and without an initialised context the models are
+    made on "cuda": here, with no card, that raises instead of falling back
+    to the CPU."""
+    from horovod_tpu_torch.models.bert import Bert, bert_tiny
+    from horovod_tpu_torch.models.resnet import ResNetTiny
+    build = {"resnet": lambda: ResNetTiny(num_classes=10),
+             "bert": lambda: Bert(bert_tiny())}[make]
+    assert not thvd.is_initialized()
+    if torch.cuda.is_available():
+        assert next(build().parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
