@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
-and of its Adasum path across up to four cards where the machine has them.
+and of its Adasum, hierarchical and collective paths across up to four
+cards where the machine has them.
 
     python3 chip_smoke.py
 
@@ -18,14 +19,47 @@ Phases, one line each; any failure raises and the script exits nonzero:
    the phase prints that and runs nothing. With 2 or more cards it starts
    a world of n ranks over NCCL (n the largest power of 2 at most
    min(4, cards), one card each, the port's ``HOROVOD_*`` environment) and
-   trains the model of phase 6 for 3 steps, a different batch per rank.
+   trains the model of phase 7 for 3 steps, a different batch per rank.
    It requires log2(n) launches of B4 and of B5 per rank per step, finite
    losses, parameters bit-identical across the ranks, and rank 0's first
    combined gradient within tolerance of the plain butterfly of the
    gathered local gradients. Prints the step time and the third step's
    device time by kernel group. It runs before this process allocates
    anything on the cards.
-4. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
+4. collectives — the hierarchical all-reduce and the rest of the
+   collective surface; like phase 3 it needs two ranks, prints that on one
+   card and runs nothing, and otherwise starts its own NCCL world of n
+   ranks before this process allocates anything, declared 2 cross x n/2
+   intra (``HOROVOD_LOCAL_SIZE``: 2 x 2 on 4 cards, 2 x 1 on 2) with
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``.
+   (a) ``DistributedOptimizer(AdamW)`` on the model of phase 7, a
+   different batch per rank, 3 steps: finite losses, parameters
+   bit-identical across ranks, B1-B3 at least once a layer a step, one
+   intra-node reduce-scatter, one cross-node all-reduce and one intra-node
+   all-gather per bucket per step (and one each for the loss), and the
+   first step's reduced gradient per element within 2^-21 sum_i |g_i| / n
+   of a flat ``dist.all_reduce`` of the same local gradients (each side
+   sums n <= 4 terms with n - 1 roundings of 2^-24 of the summed
+   magnitudes; dividing by 2 or 4 is exact). Then 12 steps in turns, flat
+   and hierarchical, for the step time and tokens/s/GPU of each.
+   (b) ``hierarchical_adasum`` of each rank's flat f32 gradient
+   (1,486,901,248 elements): log2(cross) launches of B4 and of B5 a rank,
+   and rank 0's result within 1e-5 (|ref| + RMS(ref)) of the sum within
+   each node combined by the plain butterfly, shard by shard (the JAX
+   function's coefficients are per intra shard); then timed in a second
+   call.
+   (c) The surface at realistic sizes, each against a plain construction
+   and then timed, with nccl-tests' algorithm and bus bandwidths:
+   ``reducescatter`` of that gradient (within 2^-21 sum_i |x_i| of a flat
+   all-reduce's slice) and ``allgather`` of its shards (bit-exact against
+   broadcasts from each rank), the flat and the hierarchical all-reduce of
+   it; ``alltoall`` of Mixtral-8x7B's dispatch buffer, [8, 1280, 4096] bf16
+   a rank (bit-exact against point-to-point sends); ``grouped_broadcast``
+   of a parameter list of the model's shapes (bit-exact against the root's
+   seeded list); ``allgather_v`` and ``alltoall_v`` with uneven sizes
+   (bit-exact); ``join_allreduce`` with the last rank out of data; and
+   ``broadcast_object`` and ``allgather_object`` of a nested dict.
+5. kernels — each flash-attention kernel (B1 forward, B2 dQ, B3 dK/dV)
    against its plain PyTorch version on the same inputs: at the training
    shape (B=2, T=2048, H=32, D=128, causal) in bf16 (the tensor-core
    kernels) and again in f32 (the CUDA-core kernels), at a small f32
@@ -36,9 +70,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    achieved TFLOP/s and share of the bound, its plain version and
    ``F.scaled_dot_product_attention`` (the yardstick; the port never calls
    it).
-5. model   — a small f32 Llama (head dim 64) on the card: logits and
+6. model   — a small f32 Llama (head dim 64) on the card: logits and
    gradients with flash on (the kernels) agree with flash off.
-6. train   — the main path: ``init()`` (an NCCL world of one), the
+7. train   — the main path: ``init()`` (an NCCL world of one), the
    Llama-3-8B-width model cut to 2 layers, ``create_train_state`` (parameter
    broadcast), ``DistributedOptimizer(AdamW)`` for 4 steps at batch 2 x 2048
    tokens, the last under ``torch.profiler``. Requires finite, falling
@@ -46,7 +80,7 @@ Phases, one line each; any failure raises and the script exits nonzero:
    and one all-reduce launched per fusion bucket per step (counted where
    ``allreduce_async_`` hands it to ``torch.distributed``). Prints the step
    time and tokens/s, and the profiled step's device time by kernel group.
-7. adasum-kernels — the Adasum kernels (B4 the three sums, B5 the combine)
+8. adasum-kernels — the Adasum kernels (B4 the three sums, B5 the combine)
    against their plain PyTorch versions. Main-path case: the flat f32
    gradients (1,486,901,248 elements each, in ``DistributedOptimizer``
    order) of the same model on two seeded batches, the pair two ranks
@@ -56,7 +90,7 @@ Phases, one line each; any failure raises and the script exits nonzero:
    beside their bounds, their plain versions and their yardsticks (three
    ``torch.dot`` calls for B4, ``torch.add(a.mul(ca), b, alpha=cb)`` for
    B5; the port calls neither).
-8. resnet  — the ResNet path, as ``bench.py`` runs it: ``init()`` (an NCCL
+9. resnet  — the ResNet path, as ``bench.py`` runs it: ``init()`` (an NCCL
    world of one), ``ResNet50(stem="space_to_depth")`` with SyncBatchNorm,
    bf16 compute and f32 parameters, channels_last,
    ``DistributedOptimizer(SGD(lr 0.1, momentum 0.9))``, a seeded synthetic
@@ -65,7 +99,7 @@ Phases, one line each; any failure raises and the script exits nonzero:
    fusion bucket per step, and BatchNorm running statistics that moved and
    are finite. Prints images/s/GPU, the step time, peak memory and the
    profiled step's device time by kernel group.
-9. bert    — the BERT path: ``bert_large()`` at full depth (24 layers), 8 x
+10. bert    — the BERT path: ``bert_large()`` at full depth (24 layers), 8 x
    512 tokens with a key-padding mask whose rows hold 512, 480, ..., 288
    real tokens, pads labelled -1 and 15 % of the real positions MLM labels
    (``benchmarks/bert.py``), ``DistributedOptimizer(AdamW(1e-4),
@@ -73,19 +107,25 @@ Phases, one line each; any failure raises and the script exits nonzero:
    4 steps, the last profiled. Requires finite, falling losses, B1, B2 and
    B3 each launched 24 times a step, and one all-reduce per bucket per
    step. Prints tokens/s/GPU, the step time, peak memory and the breakdown.
-10. bert-kernels — B1, B2 and B3 against their plain versions at BERT's
+11. bert-kernels — B1, B2 and B3 against their plain versions at BERT's
    shape (B=8, T=512, H=16, D=64, not causal, the key-padding bias of phase
-   9), in bf16 and again in f32, at the tolerances below; times each beside
+   10), in bf16 and again in f32, at the tolerances below; times each beside
    its bound, its plain version and ``F.scaled_dot_product_attention`` with
    the same additive mask, and names the SDPA back end that mask selects.
-11. crossover — one BERT-Large layer's attention (B=8, H=16, D=64, bf16, a
+12. crossover — one BERT-Large layer's attention (B=8, H=16, D=64, bf16, a
    ragged mask), forward and backward, through the flash kernels and through
    the materialised softmax of ``models/bert.py``, at T = 128, 256, 512 and
    1024: the shortest T from which flash is faster (``models/_flash.py``'s
    ``AUTO_MIN_SEQ``).
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
-last ``{"ok": true, "device": {...}}``.
+last ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are those of
+its main path alone: phase 7's run for B1-B3, phase 3's for B4 and B5 (0 on
+one card). ``launches_by_path`` gives each path's own count beside it, each
+read from a run whose counts were set to 0 just before it: ``train`` (phase
+7), ``bert`` (phase 10), ``adasum`` (phase 3) and ``collectives`` (phase 4,
+its three checked steps for B1-B3 and its ``hierarchical_adasum`` call for
+B4 and B5).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -671,39 +711,33 @@ def adasum_worker(out_dir):
     return 0
 
 
-def adasum_phase(torch, card):
-    """The ``adasum`` phase (module doc). Returns rank 0's launches of B4
-    and B5 over its steps, or zeros on one card."""
-    cards = torch.cuda.device_count()
-    n = 1 << (min(4, cards).bit_length() - 1)
-    if n < 2:
-        log("adasum", "one card: Adasum of a single contribution is that "
-                      "contribution (horovod_tpu/collectives/adasum.py:"
-                      "108-117), so in a world of one the butterfly and its "
-                      "kernels do not run; the phase needs 2 or more cards")
-        return {"norms_dot": 0, "combine": 0}
+def run_world(phase, n, env=None, limit=900):
+    """Run ``--<phase>-worker`` in an NCCL world of n processes, one card
+    each, with the port's ``HOROVOD_*`` environment and ``env``; return each
+    rank's ``rank<r>.json``. A rank that fails fails the phase, with the end
+    of its log; every process is stopped before this returns."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as d:
-        env = dict(os.environ, HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
-                   HOROVOD_NUM_PROCESSES=str(n))
+        base = dict(os.environ, HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
+                    HOROVOD_NUM_PROCESSES=str(n), **(env or {}))
         procs, logs = [], []
         try:
             for r in range(n):
                 logs.append(open(os.path.join(d, f"rank{r}.log"), "w"))
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
-                     "--adasum-worker", d],
-                    env=dict(env, HOROVOD_PROCESS_ID=str(r)),
+                     f"--{phase}-worker", d],
+                    env=dict(base, HOROVOD_PROCESS_ID=str(r)),
                     stdout=logs[-1], stderr=subprocess.STDOUT))
-            deadline = time.monotonic() + 900
+            deadline = time.monotonic() + limit
             for r, p in enumerate(procs):
                 rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
                 if rc != 0:
                     with open(os.path.join(d, f"rank{r}.log")) as f:
                         tail = f.read()[-4000:]
-                    raise AssertionError(f"adasum rank {r} exited {rc}:\n"
+                    raise AssertionError(f"{phase} rank {r} exited {rc}:\n"
                                          f"{tail}")
         finally:
             for p in procs:
@@ -715,6 +749,21 @@ def adasum_phase(torch, card):
         for r in range(n):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+    return ranks
+
+
+def adasum_phase(torch, card):
+    """The ``adasum`` phase (module doc). Returns rank 0's launches of B4
+    and B5 over its steps, or zeros on one card."""
+    cards = torch.cuda.device_count()
+    n = 1 << (min(4, cards).bit_length() - 1)
+    if n < 2:
+        log("adasum", "one card: Adasum of a single contribution is that "
+                      "contribution (horovod_tpu/collectives/adasum.py:"
+                      "108-117), so in a world of one the butterfly and its "
+                      "kernels do not run; the phase needs 2 or more cards")
+        return {"norms_dot": 0, "combine": 0}
+    ranks = run_world("adasum", n)
     levels = n.bit_length() - 1
     for res in ranks:
         if res["launches"] != [[levels, levels]] * 3:
@@ -746,6 +795,431 @@ def adasum_phase(torch, card):
     log("adasum", f"rank 0, step 3 under torch.profiler: {r0['profile']}")
     return {"norms_dot": sum(x[0] for x in r0["launches"]),
             "combine": sum(x[1] for x in r0["launches"])}
+
+
+#: Bus-bandwidth factor of each timed collective, as nccl-tests define it:
+#: busbw = algbw * factor(n), algbw = bytes / time.
+BUS_FACTOR = {"allreduce": lambda n: 2 * (n - 1) / n,
+              "reducescatter": lambda n: (n - 1) / n,
+              "allgather": lambda n: (n - 1) / n,
+              "alltoall": lambda n: (n - 1) / n,
+              "broadcast": lambda n: 1.0}
+
+
+def summation_bound(torch, got, ref, absum, scale):
+    """Largest ``|got - ref| / (2^-21 * absum * scale)``, chunk by chunk:
+    two sums of the same n <= 4 terms in other orders differ by at most
+    2 (n - 1) roundings of 2^-24 of the summed magnitudes ``absum``, under
+    2^-21 of them. Where ``absum`` is 0 both must be exactly 0."""
+    worst = (0.0, 0.0)
+    for i in range(0, ref.numel(), CHUNK):
+        err = (got[i:i + CHUNK] - ref[i:i + CHUNK]).abs()
+        tol = 2 ** -21 * scale * absum[i:i + CHUNK]
+        if not bool((err[tol == 0] == 0).all()):
+            raise AssertionError("a sum of zeros came out nonzero")
+        worst = (max(worst[0], err.max().item()),
+                 max(worst[1], (err / tol.clamp_min(1e-38)).max().item()))
+    return worst
+
+
+def collectives_worker(out_dir):
+    """One rank of the ``collectives`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.core.config import Config
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.optimizer.functions import (allgather_object,
+                                                       broadcast_object)
+    from horovod_tpu_torch.train import (create_train_state, make_train_step,
+                                         next_token_loss)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cross, intra = hvd.cross_size(), hvd.local_size()
+    res = {"rank": rank, "size": n, "layout": [cross, intra]}
+    stages = ops.hierarchical_allreduce_async_.launches
+
+    # (a) Hierarchical Average at full width, 3 checked steps.
+    cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                              use_flash=True)
+    res["n_layers"] = cfg.n_layers
+    model = hvd_llama.Llama(cfg, seed=rank)  # the broadcast makes them equal
+    params = list(model.parameters())
+    shapes = [tuple(p.shape) for p in params]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    res["buckets"] = len(opt.buckets)
+    res["expected_buckets"] = expected_buckets(
+        model, Config.from_env().fusion_threshold_bytes)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, next_token_loss)
+    gen = torch.Generator(device="cuda").manual_seed(2000 + rank)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                           device="cuda")
+    kept = {}
+    synchronize = opt.synchronize
+
+    def keep_first_step():
+        """The first step's local and reduced gradients, flattened. The
+        hierarchical stages only read the gradients until synchronize()
+        writes the results back."""
+        first = not kept
+        if first:
+            kept["local"] = torch.cat([p.grad.reshape(-1) for p in params])
+        synchronize()
+        if first:
+            kept["reduced"] = torch.cat([p.grad.reshape(-1) for p in params])
+
+    opt.synchronize = keep_first_step
+    losses, times, fa_launches, stage_launches = [], [], [], []
+    for _ in range(3):
+        fa.reset_launch_counts()
+        before = dict(stages)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = step(state, tokens, tokens)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t)
+        fa_launches.append({k: f.launches for k, f in fa.KERNELS.items()})
+        stage_launches.append([stages[k] - before[k]
+                               for k in ops.HIER_STAGES])
+    opt.synchronize = synchronize
+    res.update(losses=losses, times=times, fa_launches=fa_launches,
+               stage_launches=stage_launches)
+    turns = {"flat": [], "hierarchical": []}
+    for mode in ("flat", "hierarchical", "hierarchical", "flat") * 3:
+        with ops.hierarchical_override(mode == "hierarchical"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = step(state, tokens, tokens)
+            loss.item()
+            turns[mode].append(time.perf_counter() - t)
+    res["turns"] = turns
+    differ = 0
+    for p in params:
+        buf = p.detach().clone()
+        dist.broadcast(buf, 0)
+        differ += int(not torch.equal(buf, p))
+    res["params_differing_from_rank0"] = differ
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    local, reduced = kept.pop("local"), kept.pop("reduced")
+    res["grad_elements"] = local.numel()
+    del state, step, opt, model, params, buf, synchronize, keep_first_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat = local.clone()
+    dist.all_reduce(flat)
+    flat.div_(n)
+    absum = local.abs()
+    dist.all_reduce(absum)
+    res["grad_err"], res["grad_err_over_tol"] = summation_bound(
+        torch, reduced, flat, absum, 1 / n)
+    del flat, absum, reduced
+    torch.cuda.empty_cache()
+
+    # (b) hierarchical_adasum over the flat gradient.
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    combined = hvd.hierarchical_adasum(local)
+    torch.cuda.synchronize()
+    res["adasum_first_s"] = time.perf_counter() - t
+    res["adasum_launches"] = [fused.fused_norms_dot.launches,
+                              fused.fused_combine.launches]
+    gathered = ([torch.empty_like(local) for _ in range(n)] if rank == 0
+                else None)
+    dist.gather(local, gathered, dst=0)
+    if rank == 0:
+        sums = []
+        for c in range(cross):  # the sum within each node, node by node
+            first = gathered[c * intra]
+            for i in range(1, intra):
+                first.add_(gathered[c * intra + i])
+            sums.append(first)
+        del gathered, first
+        # The butterfly runs on each node's shard: coefficients per shard,
+        # as the JAX package's hierarchical_adasum computes them.
+        m = local.numel() // intra
+        ref = torch.cat([plain_butterfly(fused, [x[i * m:(i + 1) * m]
+                                                 for x in sums])
+                         for i in range(intra)])
+        del sums
+        res["adasum_err"], res["adasum_err_over_tol"] = close_per_element(
+            torch, combined, ref, 1e-5)
+        del ref
+    del combined
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t = time.perf_counter()  # again, past the groups' first use
+    hvd.hierarchical_adasum(local)
+    torch.cuda.synchronize()
+    res["adasum_s"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The surface at realistic sizes, each against a plain
+    # construction, then timed (CUDA events, all ranks in step).
+    def bandwidth(kind, nbytes, ms):
+        algbw = nbytes / (ms * 1e-3) / 1e9
+        return {"ms": ms, "bytes": nbytes, "algbw": algbw,
+                "busbw": algbw * BUS_FACTOR[kind](n)}
+
+    bw = {}
+    for mode in ("flat", "hierarchical"):
+        with ops.hierarchical_override(mode == "hierarchical"):
+            bw[f"allreduce ({mode})"] = bandwidth(
+                "allreduce", local.numel() * 4,
+                time_ms(lambda: hvd.allreduce(local, hvd.Average), 3))
+    m = local.numel() // n
+    shard = hvd.reducescatter(local, hvd.Sum)
+    full = local.clone()
+    dist.all_reduce(full)
+    absum = local.abs()
+    dist.all_reduce(absum)
+    res["rs_err"], res["rs_err_over_tol"] = summation_bound(
+        torch, shard, full[rank * m:(rank + 1) * m],
+        absum[rank * m:(rank + 1) * m], 1.0)
+    del full, absum
+    bw["reducescatter"] = bandwidth(
+        "reducescatter", local.numel() * 4,
+        time_ms(lambda: hvd.reducescatter(local, hvd.Sum), 3))
+    del local
+    torch.cuda.empty_cache()
+    got = hvd.allgather(shard)
+    want = torch.empty_like(got)
+    for p in range(n):
+        buf = shard.clone() if p == rank else torch.empty_like(shard)
+        dist.broadcast(buf, p)
+        want[p * m:(p + 1) * m] = buf
+    res["allgather_exact"] = bool(torch.equal(got, want))
+    del got, want, buf
+    bw["allgather"] = bandwidth("allgather", shard.numel() * 4 * n,
+                                time_ms(lambda: hvd.allgather(shard), 3))
+    del shard
+    torch.cuda.empty_cache()
+
+    dispatch = torch.randn((8, 1280, 4096), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    got = hvd.alltoall(dispatch)
+    want = torch.empty_like(dispatch)
+    c = dispatch.shape[0] // n
+    p2p = []
+    for p in range(n):
+        part = slice(p * c, (p + 1) * c)
+        if p == rank:
+            want[part] = dispatch[part]
+        else:
+            p2p += [dist.P2POp(dist.isend, dispatch[part].clone(), p),
+                    dist.P2POp(dist.irecv, want[part], p)]
+    for work in dist.batch_isend_irecv(p2p):
+        work.wait()
+    res["alltoall_exact"] = bool(torch.equal(got, want))
+    bw["alltoall"] = bandwidth("alltoall", dispatch.numel() * 2,
+                               time_ms(lambda: hvd.alltoall(dispatch)))
+    del dispatch, got, want, p2p
+
+    def param_list(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(s, generator=g, device="cuda") for s in shapes]
+
+    mine = param_list(3000 + rank)
+    got = hvd.grouped_broadcast(mine, 0)
+    want = param_list(3000)
+    res["broadcast_exact"] = all(bool(torch.equal(a, b))
+                                 for a, b in zip(got, want))
+    del got, want
+    bw["grouped_broadcast"] = bandwidth(
+        "broadcast", sum(t.numel() for t in mine) * 4,
+        time_ms(lambda: hvd.grouped_broadcast(mine, 0), 3))
+    del mine
+    torch.cuda.empty_cache()
+
+    rows, width = 4096, 4096
+    valid = [rows - 1024 * r - 7 * r for r in range(n)]
+
+    def padded(r):
+        g = torch.Generator(device="cuda").manual_seed(4000 + r)
+        x = torch.randn((rows, width), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        return x, torch.cat([x[:valid[r]], x.new_zeros(rows - valid[r],
+                                                       width)])
+
+    mine = padded(rank)[0]
+    got, sizes = hvd.allgather_v(mine, valid[rank])
+    want = torch.cat([padded(r)[1] for r in range(n)])
+    res["allgather_v_exact"] = (bool(torch.equal(got, want))
+                                and sizes.tolist() == valid)
+    bw["allgather_v"] = bandwidth(
+        "allgather", got.numel() * 2,
+        time_ms(lambda: hvd.allgather_v(mine, valid[rank])))
+    del mine, got, want
+    splits = [[256 * (1 + (r + p) % n) for p in range(n)] for r in range(n)]
+    cap = 256 * n
+
+    def sent(r):
+        g = torch.Generator(device="cuda").manual_seed(5000 + r)
+        return torch.randn((sum(splits[r]), width), generator=g,
+                           device="cuda", dtype=torch.bfloat16)
+
+    mine = sent(rank)
+    got, recv_splits = hvd.alltoall_v(mine, splits[rank], max_split=cap)
+    want = torch.zeros((n * cap, width), device="cuda", dtype=torch.bfloat16)
+    for p in range(n):
+        off, cnt = sum(splits[p][:rank]), splits[p][rank]
+        want[p * cap:p * cap + cnt] = sent(p)[off:off + cnt]
+    res["alltoall_v_exact"] = (bool(torch.equal(got, want))
+                               and recv_splits.tolist()
+                               == [splits[p][rank] for p in range(n)])
+    bw["alltoall_v"] = bandwidth(
+        "alltoall", got.numel() * 2,
+        time_ms(lambda: hvd.alltoall_v(mine, splits[rank], max_split=cap)))
+    del mine, got, want
+
+    def jvec(r):
+        g = torch.Generator(device="cuda").manual_seed(6000 + r)
+        return torch.randn(1 << 24, generator=g, device="cuda")
+
+    got = hvd.join_allreduce(jvec(rank), rank != n - 1)
+    live = [jvec(r) for r in range(n - 1)]
+    ref = sum(live) / (n - 1)
+    absum = sum(v.abs() for v in live) / (n - 1) + ref.abs()
+    res["join_err"], res["join_err_over_tol"] = summation_bound(
+        torch, got, ref, absum, 1.0)
+    del got, live, ref, absum
+
+    def obj(r):
+        return {"epoch": 7 + r, "rank": r,
+                "metrics": {"loss": [0.5 * r, None], "ok": r % 2 == 0},
+                "tag": ("resume", r)}
+
+    res["objects_exact"] = (broadcast_object(obj(rank), n - 1) == obj(n - 1)
+                            and allgather_object(obj(rank))
+                            == [obj(r) for r in range(n)])
+    res["bandwidth"] = bw
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def collectives_phase(torch, card):
+    """The ``collectives`` phase (module doc). Returns rank 0's launches of
+    B1-B5 on its paths, or zeros on one card."""
+    cards = torch.cuda.device_count()
+    n = 1 << (min(4, cards).bit_length() - 1)
+    if n < 2:
+        log("collectives", "one card: the hierarchical paths and the "
+                           "collectives between ranks need 2 or more cards; "
+                           "in a world of one every collective of the port "
+                           "is the identity or a single-rank all-reduce, so "
+                           "the phase runs nothing here")
+        return dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv",
+                              "norms_dot", "combine"], 0)
+    ranks = run_world("collectives", n, {
+        "HOROVOD_LOCAL_SIZE": str(n // 2),
+        "HOROVOD_HIERARCHICAL_ALLREDUCE": "1"})
+    r0 = ranks[0]
+    cross, intra = r0["layout"]
+    levels = cross.bit_length() - 1
+    stages = [r0["expected_buckets"] + 1] * 3  # the buckets and the loss
+    for res in ranks:
+        if res["layout"] != [2, n // 2]:
+            raise AssertionError(f"layout {res['layout']}, declared "
+                                 f"2 x {n // 2}")
+        if res["buckets"] != res["expected_buckets"]:
+            raise AssertionError(f"{res['buckets']} buckets, expected "
+                                 f"{res['expected_buckets']}")
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"non-finite loss: {res['losses']}")
+        if res["params_differing_from_rank0"]:
+            raise AssertionError(f"rank {res['rank']}: "
+                                 f"{res['params_differing_from_rank0']} "
+                                 "parameters differ from rank 0's")
+        for launched in res["fa_launches"]:
+            if min(launched.values()) < res["n_layers"]:
+                raise AssertionError(f"flash kernels per step {launched}, "
+                                     "expected once a layer at least")
+        if res["stage_launches"] != [stages] * 3:
+            raise AssertionError(f"rank {res['rank']}: stages per step "
+                                 f"{res['stage_launches']}, expected "
+                                 f"{stages}")
+        if res["adasum_launches"] != [levels, levels]:
+            raise AssertionError(f"rank {res['rank']}: B4/B5 launches "
+                                 f"{res['adasum_launches']}, expected "
+                                 f"{levels} each")
+        for key in ("grad", "rs", "join"):
+            if not res[f"{key}_err_over_tol"] <= 1.0:
+                raise AssertionError(f"rank {res['rank']}: {key} off by "
+                                     f"{res[f'{key}_err_over_tol']:.3f} of "
+                                     "its tolerance")
+        for key in ("allgather", "alltoall", "broadcast", "allgather_v",
+                    "alltoall_v", "objects"):
+            if not res[f"{key}_exact"]:
+                raise AssertionError(f"rank {res['rank']}: {key} differs "
+                                     "from its plain construction")
+    if not r0["adasum_err_over_tol"] <= 1.0:
+        raise AssertionError(f"hierarchical_adasum off the plain "
+                             f"composition: {r0['adasum_err_over_tol']:.3f} "
+                             "of tolerance")
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    flat_s, hier_s = med(r0["turns"]["flat"]), med(r0["turns"]["hierarchical"])
+    log("collectives", f"{n} ranks over NCCL declared {cross} x {intra} "
+                       f"(HOROVOD_LOCAL_SIZE={intra}), "
+                       f"HOROVOD_HIERARCHICAL_ALLREDUCE=1, "
+                       f"DistributedOptimizer(AdamW), 2-layer llama3_8b "
+                       f"width: losses {r0['losses']}; stages per step "
+                       f"{r0['stage_launches'][0]} ({r0['buckets']} buckets "
+                       f"and the loss); B1-B3 per step "
+                       f"{r0['fa_launches'][0]}; parameters bit-identical "
+                       f"on every rank; step-1 reduced gradient vs flat "
+                       f"dist.all_reduce max err {r0['grad_err']:.2e}, "
+                       f"err/tol {r0['grad_err_over_tol']:.3f} (tolerance "
+                       f"2^-21 sum_i |g_i| / n per element); peak "
+                       f"{r0['peak_gb']:.1f} GB; on {card}")
+    log("collectives", f"step in turns, 6 each: hierarchical "
+                       f"{hier_s * 1e3:.1f} ms, "
+                       f"{2 * 2048 / hier_s:.0f} tokens/s/GPU; flat "
+                       f"{flat_s * 1e3:.1f} ms, {2 * 2048 / flat_s:.0f} "
+                       f"tokens/s/GPU (median; hierarchical "
+                       f"{sorted(round(t * 1e3, 1) for t in r0['turns']['hierarchical'])}, "
+                       f"flat {sorted(round(t * 1e3, 1) for t in r0['turns']['flat'])} ms; "
+                       f"first checked step {r0['times'][0] * 1e3:.1f} ms); "
+                       f"on {card}")
+    log("collectives", f"hierarchical_adasum of the flat f32 gradient "
+                       f"({r0['grad_elements']:,} elements): "
+                       f"{r0['adasum_s'] * 1e3:.1f} ms on the host clock "
+                       f"(first call, with the cross group's setup, "
+                       f"{r0['adasum_first_s'] * 1e3:.1f} ms); B4/B5 "
+                       f"launches {r0['adasum_launches']} "
+                       f"a rank ({levels} level(s) across {cross} nodes); "
+                       f"vs the intra sum then the plain butterfly max err "
+                       f"{r0['adasum_err']:.2e}, err/tol "
+                       f"{r0['adasum_err_over_tol']:.3f} (tolerance 1e-5 "
+                       f"(|ref| + RMS(ref)))")
+    log("collectives", f"reducescatter of the flat gradient vs the slice of "
+                       f"a flat all-reduce: max err {r0['rs_err']:.2e}, "
+                       f"err/tol {r0['rs_err_over_tol']:.3f}; join_allreduce "
+                       f"with rank {n - 1} out of data: err/tol "
+                       f"{r0['join_err_over_tol']:.3f}; allgather, alltoall, "
+                       f"grouped_broadcast, allgather_v, alltoall_v and the "
+                       f"object helpers bit-exact against their plain "
+                       f"constructions on every rank")
+    for name, b in r0["bandwidth"].items():
+        log("collectives", f"{name}: {b['bytes'] / 1e9:.3f} GB in "
+                           f"{b['ms']:.3f} ms, algbw {b['algbw']:.1f} GB/s, "
+                           f"busbw {b['busbw']:.1f} GB/s ({n} ranks); on "
+                           f"{card}")
+    total = {k: sum(x[k] for x in r0["fa_launches"])
+             for k in r0["fa_launches"][0]}
+    total.update(norms_dot=r0["adasum_launches"][0],
+                 combine=r0["adasum_launches"][1])
+    return total
 
 
 def run_steps(torch, step, state, batch, labels, n_steps):
@@ -900,6 +1374,7 @@ def bert_phase(torch, card):
                 f"{times[-1] * 1e3:.1f} ms on the host clock: "
                 f"{device_breakdown(prof, times[-1], MODEL_GROUPS)}")
     hvd.shutdown()
+    return launches
 
 
 def bert_kernels_phase(torch, card, fmt):
@@ -993,6 +1468,7 @@ def main():
             print("  " + line.strip())
     check_ptxas(_build.build_log)
     adasum_launches = adasum_phase(torch, card)
+    collectives_launches = collectives_phase(torch, card)
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -1112,7 +1588,7 @@ def main():
     resnet_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    bert_phase(torch, card)
+    bert_launches = bert_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     bert_kernels_phase(torch, card, fmt)
@@ -1121,11 +1597,18 @@ def main():
     ms.update(fms)
     library.update(flib)
     bounds.update(fbounds)
+    by_path = {name: {"train": count, "bert": bert_launches[name],
+                      "collectives": collectives_launches[name]}
+               for name, count in launches.items()}
+    by_path.update({name: {"adasum": count,
+                           "collectives": collectives_launches[name]}
+                    for name, count in adasum_launches.items()})
     launches.update(adasum_launches)
 
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
+        "launches_by_path": by_path[name],
         "max_abs_err": errs[name][0], "err_over_tol": errs[name][1],
         "ms": ms[name][0],
         "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
@@ -1142,4 +1625,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--adasum-worker"]:
         sys.exit(adasum_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--collectives-worker"]:
+        sys.exit(collectives_worker(sys.argv[2]))
     sys.exit(main())

@@ -18,7 +18,10 @@ call gets one ``(ca, cb)`` pair per level over all of them. Large f32
 working vectors on the card take the fused kernels of ``ops/fused.py`` (B4
 and B5), everything else the plain combine.
 
-``hierarchical_adasum`` is not ported yet (ROADMAP).
+:func:`hierarchical_adasum` is the reference's GPU Adasum shape over the
+context's two-level layout: a sum within the node, the butterfly across the
+nodes, a gather within the node. Nothing calls it implicitly:
+``op=Adasum`` stays on the flat butterfly, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -130,8 +133,8 @@ def adasum_allreduce(tensor: Tensors, *,
         raise ValueError(
             f"Adasum butterfly needs a power-of-2 participant count, got "
             f"{len(ranks)} (the reference's recursive-halving tree has the "
-            "same shape constraint); use hierarchical_adasum or pad the "
-            "process set")
+            "same shape constraint); use hierarchical_adasum over a layout "
+            "with a power-of-2 node count, or pad the process set")
     if ctx.rank not in ranks or not leaves:
         return tensor
     acc = (torch.float64 if ctx.config.adasum_accumulate_dtype == "float64"
@@ -148,3 +151,40 @@ def adasum_allreduce(tensor: Tensors, *,
         out.append(x[off:off + t.numel()].view(t.shape).to(t.dtype))
         off += t.numel()
     return rebuild(out)
+
+
+def hierarchical_adasum(tensor: Tensors, *,
+                        accumulate_dtype: torch.dtype = torch.float32
+                        ) -> Tensors:
+    """The reference's GPU Adasum over the context's two-level layout
+    (parity: ``hvd.hierarchical_adasum``; the layout groups stand in for
+    the JAX function's ``intra_axis`` and ``cross_axis``): for each tensor,
+    its flat ``accumulate_dtype`` copy padded to a multiple of the intra
+    size, reduce-scattered (summed) within the node, combined by the Adasum
+    butterfly across the nodes (B4 and B5 once a level on large f32 shards
+    on the card; the coefficients are the shard's, as in the JAX
+    function), and all-gathered within the node. Every rank takes part;
+    the node count must be a power of 2. Returns each tensor's shape and
+    dtype, the same structure as ``tensor``."""
+    leaves: List[torch.Tensor] = ([tensor] if isinstance(tensor, torch.Tensor)
+                                  else list(tensor))
+    ctx = _ctx.context()
+    intra, node, cross, peers = ctx.layout_groups()
+    if len(peers) & (len(peers) - 1):
+        raise ValueError(f"hierarchical Adasum needs a power-of-2 node "
+                         f"count, got {len(peers)}")
+    out = []
+    for x in leaves:
+        flat = x.reshape(-1).to(accumulate_dtype)
+        sz = flat.numel()
+        pad = (-sz) % len(node)
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        shard = flat.new_empty(flat.numel() // len(node))
+        dist.reduce_scatter_tensor(shard, flat.contiguous(), group=intra)
+        del flat
+        shard = _butterfly(shard, peers, cross)
+        full = shard.new_empty(shard.numel() * len(node))
+        dist.all_gather_into_tensor(full, shard, group=intra)
+        out.append(full[:sz].view(x.shape).to(x.dtype))
+    return out[0] if isinstance(tensor, torch.Tensor) else out

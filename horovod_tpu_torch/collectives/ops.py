@@ -3,7 +3,11 @@
 Counterpart of ``horovod_tpu/collectives/ops.py``. The JAX package lowers
 every op to an XLA collective inside the compiled graph; the port issues
 NCCL (CUDA tensors) or gloo (CPU tensors) collectives eagerly, one process
-per rank, as the original Horovod did.
+per rank, as the original Horovod did. Each process calls an op on its own
+tensor, so this module is also the counterpart of
+``horovod_tpu/collectives/eager.py``: the JAX package's stacked ``[size,
+...]`` per-rank view exists for a single controller, and a world of one
+process per GPU has no use for it.
 
 Fusion: ``grouped_allreduce`` and ``DistributedOptimizer`` pack tensors into
 flat per-wire-dtype buckets of at most ``HOROVOD_FUSION_THRESHOLD`` bytes,
@@ -11,14 +15,30 @@ walking the tensors in REVERSE order (:func:`plan_buckets`, the reference's
 ``_fused_reduce`` packing), so the last layer's gradients — the first that
 backward produces — fill the first bucket. One all-reduce per bucket.
 
-This module ports ``allreduce``, ``grouped_allreduce``, ``broadcast`` and
-``barrier``; ``op=Adasum`` routes to the butterfly of ``adasum.py``. The
-other collectives come with a later slice.
+Hierarchical all-reduce (``HOROVOD_HIERARCHICAL_ALLREDUCE``, or
+:func:`hierarchical_override`): a Sum or Average over the global set takes
+three stages over the context's two-level layout (``core/context_api.py``)
+— reduce-scatter within the node, all-reduce across the nodes, all-gather
+within the node — the reference's NCCL hierarchical path. Min, Max and
+Product, and process sets, stay flat. On the card the three stages are
+chained on a side stream (:func:`hierarchical_allreduce_async_`), so the
+gradient hooks of ``DistributedOptimizer`` launch all of them while backward
+goes on.
+
+Process sets: torch groups of exactly the members take the place of the JAX
+package's padded ``axis_index_groups``, so a ragged set such as 3 of 4
+needs nothing special. Ranks outside a set take no part in its collectives;
+if they call one, they get their input back. Argument errors (dim 0 not
+divisible by the member count, a root outside the set, an op a collective
+does not take) are raised on every rank, members or not, before anything is
+sent.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import contextlib
+import functools
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -44,14 +64,23 @@ _DIST_OP = {
 }
 
 
+def _is_global(process_set: Optional[ProcessSet]) -> bool:
+    """The explicit global set (id 0) is equivalent to passing None."""
+    return process_set is None or process_set.process_set_id == 0
+
+
 def _group(process_set: Optional[ProcessSet]):
     return _ctx.context().process_sets.group(process_set)
 
 
 def _set_size(process_set: Optional[ProcessSet]) -> int:
-    if process_set is None or process_set.process_set_id == 0:
+    if _is_global(process_set):
         return _ctx.size()
     return process_set.size()
+
+
+def _member(process_set: Optional[ProcessSet]) -> bool:
+    return _is_global(process_set) or _ctx.rank() in process_set.ranks
 
 
 def _fusion_threshold() -> Optional[int]:
@@ -118,15 +147,160 @@ class Handle:
         return y
 
 
+# --- Hierarchical all-reduce -------------------------------------------------
+
+_hier_override: Optional[bool] = None
+
+
+@contextlib.contextmanager
+def hierarchical_override(value: Optional[bool]):
+    """Force ``HOROVOD_HIERARCHICAL_ALLREDUCE`` on or off inside this
+    context (None: follow the config). Process-wide, unlike the JAX
+    package's thread-local override: ``DistributedOptimizer`` launches its
+    all-reduces from gradient hooks, which run on autograd's threads."""
+    global _hier_override
+    prev = _hier_override
+    _hier_override = value
+    try:
+        yield
+    finally:
+        _hier_override = prev
+
+
+def _hierarchical(process_set: Optional[ProcessSet], op: str) -> bool:
+    """Whether an all-reduce takes the hierarchical path: Sum or Average,
+    the global set, a world of more than one rank with a two-level layout,
+    and the flag or the override on."""
+    if op not in (Sum, Average) or not _is_global(process_set):
+        return False
+    ctx = _ctx.context()
+    if ctx.size == 1 or not ctx.two_level:
+        return False
+    if _hier_override is not None:
+        return bool(_hier_override)
+    return bool(ctx.config.hierarchical_allreduce)
+
+
+def _cross_compressor() -> Optional[Compressor]:
+    """The config-engaged cross-node compressor
+    (``HOROVOD_HIERARCHICAL_COMPRESSION``: none | bf16 | fp16), or None."""
+    name = _ctx.context().config.hierarchical_compression
+    return {"bf16": Compression.bf16, "fp16": Compression.fp16}.get(name)
+
+
+#: The stages of the hierarchical all-reduce, in launch order.
+HIER_STAGES = ("intra_reduce_scatter", "cross_allreduce", "intra_allgather")
+
+_side_streams: dict = {}  # CUDA device -> the stream the stages chain on
+
+
+class _ChainHandle:
+    """A hierarchical all-reduce whose stages are chained on a side stream
+    (CUDA) or done (CPU). :meth:`wait` makes the current stream wait for
+    the chain and returns the reduced buffer."""
+
+    def __init__(self, out: torch.Tensor, stream, keep):
+        self._out, self._stream, self._keep = out, stream, keep
+
+    def wait(self) -> torch.Tensor:
+        if self._stream is not None:
+            cur = torch.cuda.current_stream(self._out.device)
+            cur.wait_stream(self._stream)
+            # Allocated on the side stream, read on this one from now on.
+            self._out.record_stream(cur)
+        self._keep = None
+        return self._out
+
+
+def hierarchical_allreduce_async_(buf: torch.Tensor, op: str = Average, *,
+                                  cross_compression: Optional[Compressor]
+                                  = None, prescale_factor: float = 1.0,
+                                  postscale_factor: float = 1.0
+                                  ) -> _ChainHandle:
+    """Start the hierarchical Sum or Average of the flat buffer ``buf``
+    (handed over until :meth:`wait`) across every rank; the reference's
+    ``_hier_reduce_flat``: pre-scale; pad to a multiple of the intra size;
+    reduce-scatter (sum) within the node; all-reduce across the nodes, with
+    only that hop's payload cast by ``cross_compression``; divide by the
+    world size for Average and post-scale, on the shard; all-gather within
+    the node; slice the padding off. The result is a new tensor.
+
+    ``cross_compression`` None takes ``HOROVOD_HIERARCHICAL_COMPRESSION``;
+    ``Compression.none`` turns it off.
+
+    On the card the three stages are queued on a side stream that first
+    waits for the current one, each stage's ``work.wait()`` making the side
+    stream, not the caller's, wait. Called from a gradient hook, the whole
+    chain then runs while backward goes on; launching only the first stage
+    in the hook and the rest in :meth:`wait` would leave two of three
+    stages after backward."""
+    if op not in (Sum, Average):
+        raise ValueError("hierarchical allreduce supports Sum and Average; "
+                         f"got {op!r}")
+    if cross_compression is None:
+        cross_compression = _cross_compressor()
+    elif cross_compression is Compression.none:
+        cross_compression = None
+    ctx = _ctx.context()
+    intra, node, cross, _ = ctx.layout_groups()
+    stream = None
+    if buf.is_cuda:
+        stream = _side_streams.get(buf.device)
+        if stream is None:
+            stream = _side_streams[buf.device] = torch.cuda.Stream(buf.device)
+        stream.wait_stream(torch.cuda.current_stream(buf.device))
+    launches = hierarchical_allreduce_async_.launches
+    with torch.cuda.stream(stream) if stream is not None \
+            else contextlib.nullcontext():
+        if prescale_factor != 1.0:
+            buf.mul_(prescale_factor)
+        flat = buf.reshape(-1)
+        sz = flat.numel()
+        pad = (-sz) % len(node)
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        shard = flat.new_empty(flat.numel() // len(node))
+        dist.reduce_scatter_tensor(shard, flat, group=intra,
+                                   async_op=True).wait()
+        launches["intra_reduce_scatter"] += 1
+        wire, cctx = (cross_compression.compress(shard)
+                      if cross_compression is not None else (shard, None))
+        dist.all_reduce(wire, group=cross, async_op=True).wait()
+        launches["cross_allreduce"] += 1
+        red = (cross_compression.decompress(wire, cctx)
+               if cross_compression is not None else wire)
+        if op == Average:
+            red = red / ctx.size
+        if postscale_factor != 1.0:
+            red = red * postscale_factor
+        full = red.new_empty(flat.numel())
+        dist.all_gather_into_tensor(full, red, group=intra,
+                                    async_op=True).wait()
+        launches["intra_allgather"] += 1
+    return _ChainHandle((full[:sz] if pad else full).view(buf.shape), stream,
+                        (buf, flat, shard, wire, red))
+
+
+#: Stages handed to ``torch.distributed`` by the hierarchical all-reduce,
+#: by stage (:data:`HIER_STAGES`). Plain counts; reset by assignment.
+hierarchical_allreduce_async_.launches = dict.fromkeys(HIER_STAGES, 0)
+
+
 def allreduce_async_(buf: torch.Tensor, op: str = Average, *,
                      process_set: Optional[ProcessSet] = None,
                      prescale_factor: float = 1.0,
-                     postscale_factor: float = 1.0) -> Handle:
+                     postscale_factor: float = 1.0):
     """Start an all-reduce of ``buf`` IN PLACE (the caller hands the buffer
     over until :meth:`Handle.wait`). Scale factors apply in ``buf``'s dtype,
-    as the reference applies them to the wire tensor."""
+    as the reference applies them to the wire tensor. Where the
+    hierarchical path engages (module doc) this is
+    :func:`hierarchical_allreduce_async_`, whose result is a new tensor."""
     if op not in _DIST_OP:
         raise ValueError(f"unsupported reduce op: {op}")
+    if _hierarchical(process_set, op):
+        return hierarchical_allreduce_async_(
+            buf, op, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor)
     if prescale_factor != 1.0:
         buf.mul_(prescale_factor)
     work = dist.all_reduce(buf, _DIST_OP[op], group=_group(process_set),
@@ -135,9 +309,9 @@ def allreduce_async_(buf: torch.Tensor, op: str = Average, *,
     return Handle(buf, work, op, _set_size(process_set), postscale_factor)
 
 
-#: All-reduces handed to ``torch.distributed`` — every all-reduce of this
-#: module goes through :func:`allreduce_async_`. A plain count; reset it by
-#: assignment.
+#: Flat all-reduces handed to ``torch.distributed`` — every flat all-reduce
+#: of this module goes through :func:`allreduce_async_`. A plain count;
+#: reset it by assignment.
 allreduce_async_.launches = 0
 
 
@@ -165,23 +339,19 @@ def allreduce(tensor: torch.Tensor, op: str = Average, *,
 
 
 def _fused_reduce(tensors: Sequence[torch.Tensor], compression: Compressor,
-                  op: str, process_set: Optional[ProcessSet],
-                  prescale_factor: float, postscale_factor: float,
-                  max_bucket_bytes: Optional[int]) -> List[torch.Tensor]:
+                  launch: Callable, max_bucket_bytes: Optional[int]
+                  ) -> List[torch.Tensor]:
     """The fusion buffer: compress each tensor, pack the wire tensors into
-    buckets (:func:`plan_buckets`), launch one all-reduce per flat bucket,
-    then split and decompress. Returns new tensors; the inputs are left
-    untouched."""
+    buckets (:func:`plan_buckets`), ``launch`` each flat bucket (it returns
+    a handle), then split and decompress. Returns new tensors; the inputs
+    are left untouched."""
     compressed = [compression.compress(t) for t in tensors]
     buckets = plan_buckets(
         [(w.numel() * w.element_size(), w.dtype) for w, _ in compressed],
         max_bucket_bytes)
     flats = [torch.cat([compressed[i][0].reshape(-1) for i in idxs])
              for idxs in buckets]
-    handles = [allreduce_async_(f, op, process_set=process_set,
-                                prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor)
-               for f in flats]
+    handles = [launch(f) for f in flats]
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for idxs, handle in zip(buckets, handles):
         red = handle.wait()
@@ -211,23 +381,53 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: str = Average, *,
                                 postscale_factor=postscale_factor)
     if op not in _DIST_OP:
         raise ValueError(f"unsupported reduce op: {op}")
-    return _fused_reduce(list(tensors), compression, op, process_set,
-                         prescale_factor, postscale_factor,
+    launch = functools.partial(allreduce_async_, op=op,
+                               process_set=process_set,
+                               prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor)
+    return _fused_reduce(list(tensors), compression, launch,
                          _fusion_threshold())
 
+
+def hierarchical_allreduce(tensor, op: str = Average, *,
+                           compression: Compressor = Compression.none,
+                           cross_compression: Optional[Compressor] = None,
+                           prescale_factor: float = 1.0,
+                           postscale_factor: float = 1.0):
+    """The two-level all-reduce whatever the config says (parity:
+    ``hvd.hierarchical_allreduce``), over every rank: one tensor, or a list
+    of tensors packed into the fusion buckets. The layout groups stand in
+    for the JAX function's ``intra_axis`` and ``cross_axes``.
+    ``cross_compression`` as in :func:`hierarchical_allreduce_async_`."""
+    if op not in (Sum, Average):
+        raise ValueError("hierarchical allreduce supports Sum and Average; "
+                         f"got {op!r}")
+    launch = functools.partial(hierarchical_allreduce_async_, op=op,
+                               cross_compression=cross_compression,
+                               prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor)
+    single = isinstance(tensor, torch.Tensor)
+    out = _fused_reduce([tensor] if single else list(tensor), compression,
+                        launch, _fusion_threshold())
+    return out[0] if single else out
+
+
+# --- Broadcast ---------------------------------------------------------------
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *,
                process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Broadcast ``tensor`` in place from ``root_rank`` (parity:
-    ``hvd.broadcast_``). A CPU tensor in an NCCL world goes over gloo."""
+    ``hvd.broadcast_``). A CPU tensor in an NCCL world goes over gloo.
+    Ranks outside ``process_set`` keep their value."""
     ctx = _ctx.context()
     if not 0 <= root_rank < ctx.size:
         raise ValueError(f"root rank {root_rank} out of range for world "
                          f"size {ctx.size}")
-    if process_set is not None and process_set.process_set_id != 0 \
-            and root_rank not in process_set.ranks:
+    if not _is_global(process_set) and root_rank not in process_set.ranks:
         raise ValueError(
             f"root rank {root_rank} not in process set {process_set.ranks}")
+    if not _member(process_set):
+        return tensor
     group = _group(process_set)
     if tensor.device.type == "cpu" and ctx.device.type == "cuda":
         group = _cpu_group(process_set)
@@ -241,10 +441,109 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, *,
     return broadcast_(tensor.clone(), root_rank, process_set=process_set)
 
 
+def grouped_broadcast(tensors: Sequence[torch.Tensor], root_rank: int = 0, *,
+                      process_set: Optional[ProcessSet] = None
+                      ) -> List[torch.Tensor]:
+    """:func:`broadcast` of each tensor (parity: ``hvd.grouped_broadcast``)."""
+    return [broadcast(t, root_rank, process_set=process_set)
+            for t in tensors]
+
+
+# --- Shape-changing collectives ----------------------------------------------
+
+def _gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def allgather(tensor: torch.Tensor, *,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Gather dim 0 from every member, concatenated in rank order (parity:
+    ``hvd.allgather``). Every member passes the same shape; for first dims
+    that differ use :func:`~horovod_tpu_torch.collectives.dynamic.
+    allgather_v`.
+
+    ``HOROVOD_HIERARCHICAL_ALLGATHER`` over the global set gathers within
+    the node first, then across the nodes: the same rows in the same order
+    (node-major ranks make the staged order the rank order)."""
+    ctx = _ctx.context()
+    if (_is_global(process_set) and ctx.size == 1) \
+            or not _member(process_set):
+        return tensor
+    if (_is_global(process_set) and ctx.config.hierarchical_allgather
+            and ctx.two_level):
+        intra, node, cross, peers = ctx.layout_groups()
+        return _gather(_gather(tensor, intra, len(node)), cross, len(peers))
+    return _gather(tensor, _group(process_set), _set_size(process_set))
+
+
+def grouped_allgather(tensors: Sequence[torch.Tensor], *,
+                      process_set: Optional[ProcessSet] = None
+                      ) -> List[torch.Tensor]:
+    """:func:`allgather` of each tensor (parity: ``hvd.grouped_allgather``)."""
+    return [allgather(t, process_set=process_set) for t in tensors]
+
+
+def alltoall(tensor: torch.Tensor, splits=None, *,
+             process_set: Optional[ProcessSet] = None):
+    """All-to-all exchange (parity: ``hvd.alltoall``): dim 0 is cut into one
+    equal chunk per member, chunk *i* goes to the *i*-th member, and the
+    result is the received chunks in member order. With ``splits`` it is
+    :func:`~horovod_tpu_torch.collectives.dynamic.alltoall_v`, which returns
+    ``(received, recv_splits)``."""
+    if splits is not None:
+        from .dynamic import alltoall_v
+        return alltoall_v(tensor, splits, process_set=process_set)
+    if _is_global(process_set) and _ctx.size() == 1:
+        return tensor
+    n = _set_size(process_set)
+    if tensor.shape[0] % n:
+        raise ValueError(
+            f"alltoall dim0 ({tensor.shape[0]}) must be divisible by the "
+            f"participant count ({n}); pass explicit splits for uneven "
+            "exchange")
+    if not _member(process_set):
+        return tensor
+    out = torch.empty_like(tensor, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, tensor.contiguous(),
+                           group=_group(process_set))
+    return out
+
+
+def reducescatter(tensor: torch.Tensor, op: str = Sum, *,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Reduce across the members, then scatter dim-0 chunks: the *i*-th
+    member keeps chunk *i* (parity: ``hvd.reducescatter``; the ZeRO
+    building block). Sum or Average."""
+    if op not in (Sum, Average):
+        raise ValueError("reducescatter supports Sum and Average")
+    if _is_global(process_set) and _ctx.size() == 1:
+        return tensor
+    n = _set_size(process_set)
+    if tensor.shape[0] % n:
+        raise ValueError(
+            f"reducescatter dim0 ({tensor.shape[0]}) must be divisible by {n}")
+    if not _member(process_set):
+        return tensor
+    out = tensor.new_empty((tensor.shape[0] // n,) + tuple(tensor.shape[1:]))
+    dist.reduce_scatter_tensor(out, tensor.contiguous(),
+                               group=_group(process_set))
+    return out / n if op == Average else out
+
+
+def grouped_reducescatter(tensors: Sequence[torch.Tensor], op: str = Sum, *,
+                          process_set: Optional[ProcessSet] = None
+                          ) -> List[torch.Tensor]:
+    """:func:`reducescatter` of each tensor (parity:
+    ``hvd.grouped_reducescatter``)."""
+    return [reducescatter(t, op, process_set=process_set) for t in tensors]
+
+
 def _cpu_group(process_set: Optional[ProcessSet]):
-    """A gloo group over the same ranks, for CPU tensors in an NCCL world
-    (optimizer step counters). Made once per set and context; collective
-    like every ``new_group``."""
+    """A gloo group over the same ranks, for CPU tensors and objects in an
+    NCCL world (optimizer step counters). Made once per set and context;
+    collective like every ``new_group``."""
     ctx = _ctx.context()
     ranks = tuple(process_set.ranks) if process_set is not None \
         else tuple(range(ctx.size))

@@ -6,10 +6,21 @@ Horovod ran: one process per GPU in a ``torch.distributed`` world, NCCL
 between CUDA devices and gloo between CPU processes.
 
 - ``size()`` / ``rank()``: the world size and this process's rank.
-- ``local_size()`` / ``local_rank()``: processes on this host and this
-  process's index among them; the CUDA device is ``cuda:local_rank``.
-- ``cross_size()`` / ``cross_rank()``: the number of hosts and this host's
+- ``local_size()`` / ``local_rank()``: the intra-node size and this
+  process's index within its node.
+- ``cross_size()`` / ``cross_rank()``: the number of nodes and this node's
   index, the cross-communicator of hierarchical ops.
+
+The two-level layout (cross x intra) is the counterpart of the JAX package's
+2-axis mesh (``init(mesh=...)``, or the automatic cross-process x
+local-device mesh). By default it is read from the hosts: one node a host.
+A layout can be declared instead, with ``init(mesh=(cross, intra))`` or the
+launcher's ``HOROVOD_LOCAL_SIZE`` (the reference runner's ``exec_run.py``
+exports it), so one host can stand in for several nodes. Ranks are laid out
+node-major, rank = cross_rank * local_size + local_rank. A declared layout
+only shapes the groups of the hierarchical collectives: the CUDA device stays
+``cuda:<this process's index among the processes of its host>``, so two ranks
+of one host never share a card.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ from __future__ import annotations
 import os
 import socket
 import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,7 +44,8 @@ class Context:
 
     def __init__(self, device: torch.device, config: Config, *, rank: int,
                  size: int, local_rank: int, local_size: int,
-                 cross_rank: int, cross_size: int, owns_world: bool):
+                 cross_rank: int, cross_size: int, owns_world: bool,
+                 two_level: bool = True):
         self.device = device
         self.config = config
         self.rank = rank
@@ -42,9 +54,25 @@ class Context:
         self.local_size = local_size
         self.cross_rank = cross_rank
         self.cross_size = cross_size
+        #: The layout is node-major and every node has ``local_size`` ranks,
+        #: so the hierarchical collectives can run over it.
+        self.two_level = two_level
         self.owns_world = owns_world
         self.process_sets = ProcessSetTable(size)
         self.cpu_groups: dict = {}  # gloo groups for CPU tensors, by ranks
+
+    def layout_groups(self):
+        """``(intra group, intra ranks, cross group, cross ranks)`` of this
+        rank: its node, and the ranks of the other nodes at its local index.
+        Made on first use, every node's and every index's, on every rank in
+        the same order (``new_group`` is collective)."""
+        if not self.two_level:
+            raise ValueError(
+                "the hierarchical collectives need a node-major layout with "
+                "the same number of ranks on every node; this world has "
+                "ranks per node that differ or interleave")
+        return self.process_sets.layout_groups(self.rank, self.cross_size,
+                                               self.local_size)
 
 
 _context: Optional[Context] = None
@@ -58,22 +86,45 @@ def _free_port() -> int:
 
 
 def _layout(rank: int, size: int):
-    """(local_rank, local_size, cross_rank, cross_size) from every rank's
-    hostname, gathered over a gloo group so no device is needed yet."""
+    """(local_rank, local_size, cross_rank, cross_size, node-major and
+    even) from every rank's hostname, gathered over a gloo group so no
+    device is needed yet."""
     host = socket.gethostname()
     if size == 1:
-        return 0, 1, 0, 1
+        return 0, 1, 0, 1, True
     hosts: list = [None] * size
     dist.all_gather_object(hosts, host, group=dist.new_group(backend="gloo"))
     order = list(dict.fromkeys(hosts))  # hosts in first-rank order
     local = [r for r in range(size) if hosts[r] == host]
-    return local.index(rank), len(local), order.index(host), len(order)
+    per = size // len(order)
+    even = per * len(order) == size and all(hosts[r] == order[r // per]
+                                            for r in range(size))
+    return local.index(rank), len(local), order.index(host), len(order), even
+
+
+def _declared_layout(mesh: Optional[Tuple[int, int]], size: int):
+    """``(cross, intra)`` from ``mesh`` or ``HOROVOD_LOCAL_SIZE``, or None
+    when neither declares a layout."""
+    if mesh is None:
+        local = os.environ.get("HOROVOD_LOCAL_SIZE")
+        if not local:
+            return None
+        if int(local) < 1 or size % int(local):
+            raise ValueError(f"HOROVOD_LOCAL_SIZE={local} does not divide "
+                             f"the world size {size}")
+        return size // int(local), int(local)
+    cross, intra = (int(n) for n in mesh)
+    if cross < 1 or intra < 1 or cross * intra != size:
+        raise ValueError(f"mesh {tuple(mesh)} (cross, intra) does not "
+                         f"cover the world size {size}")
+    return cross, intra
 
 
 def init(device=None, coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None,
-         config: Optional[Config] = None) -> Context:
+         config: Optional[Config] = None,
+         mesh: Optional[Tuple[int, int]] = None) -> Context:
     """Initialise the global context. Idempotent, like the reference's
     ``InitializeHorovodOnce``.
 
@@ -85,6 +136,10 @@ def init(device=None, coordinator_address: Optional[str] = None,
     ``HOROVOD_NUM_PROCESSES``, ``HOROVOD_PROCESS_ID``); with none of them,
     a one-process world on a local TCP store. A ``torch.distributed`` world
     that the caller already initialised is adopted as it is.
+
+    ``mesh``: the ``(cross, intra)`` sizes of a declared two-level layout,
+    as the JAX package's 2-axis ``mesh`` (module doc); else
+    ``HOROVOD_LOCAL_SIZE`` declares the intra size; else one node a host.
     """
     global _context
     with _lock:
@@ -115,18 +170,26 @@ def init(device=None, coordinator_address: Optional[str] = None,
                         "(HOROVOD_NUM_PROCESSES, HOROVOD_PROCESS_ID)")
             else:
                 coord, nproc, pid = f"127.0.0.1:{_free_port()}", 1, 0
+            _declared_layout(mesh, nproc)  # reject it before a world starts
             dist.init_process_group(
                 "nccl" if dev.type == "cuda" else "gloo",
                 init_method=f"tcp://{coord}", world_size=nproc, rank=pid)
         rank, size = dist.get_rank(), dist.get_world_size()
-        local_rank, local_size, cross_rank, cross_size = _layout(rank, size)
+        declared = _declared_layout(mesh, size)
+        host_rank, local_size, cross_rank, cross_size, even = _layout(rank,
+                                                                       size)
+        local_rank = host_rank
+        if declared is not None:
+            cross_size, local_size = declared
+            cross_rank, local_rank = divmod(rank, local_size)
+            even = True
         if dev.type == "cuda":
-            dev = torch.device("cuda", local_rank)
+            dev = torch.device("cuda", host_rank)
             torch.cuda.set_device(dev)
         _context = Context(dev, cfg, rank=rank, size=size,
                            local_rank=local_rank, local_size=local_size,
                            cross_rank=cross_rank, cross_size=cross_size,
-                           owns_world=owns)
+                           owns_world=owns, two_level=even)
         return _context
 
 

@@ -45,6 +45,7 @@ class ProcessSetTable:
             0: ProcessSet(0, tuple(range(world_size)))
         }
         self._groups: Dict[int, object] = {0: None}
+        self._layout: Optional[dict] = None  # the layout's groups, by ranks
 
     @property
     def global_set(self) -> ProcessSet:
@@ -76,6 +77,26 @@ class ProcessSetTable:
         with self._lock:
             self._sets.pop(psid, None)
             self._groups.pop(psid, None)
+
+    def layout_groups(self, rank: int, cross: int, intra: int):
+        """This rank's ``(intra group, intra ranks, cross group, cross
+        ranks)`` in a node-major ``cross x intra`` layout: node c holds
+        ranks ``c * intra .. c * intra + intra - 1``. The first call makes
+        every node's group, then every local index's, on every rank in that
+        order (``new_group`` is collective), and keeps them."""
+        import torch.distributed as dist
+        with self._lock:
+            if self._layout is None:
+                nodes = [tuple(range(c * intra, (c + 1) * intra))
+                         for c in range(cross)]
+                across = [tuple(range(i, cross * intra, intra))
+                          for i in range(intra)]
+                self._layout = {ranks: dist.new_group(list(ranks))
+                                for ranks in nodes + across}
+            groups = self._layout
+        node = tuple(range(rank - rank % intra, rank - rank % intra + intra))
+        peers = tuple(range(rank % intra, cross * intra, intra))
+        return groups[node], node, groups[peers], peers
 
     def group(self, ps: Optional[ProcessSet]):
         """The ``torch.distributed`` group of ``ps`` (None: the world)."""

@@ -1,5 +1,6 @@
 """DistributedOptimizer, SyncBatchNorm and the startup broadcasts."""
 
 from .distributed import DistributedOptimizer
-from .functions import broadcast_optimizer_state, broadcast_parameters
+from .functions import (allgather_object, broadcast_object,
+                        broadcast_optimizer_state, broadcast_parameters)
 from .sync_batch_norm import SyncBatchNorm

@@ -12,7 +12,13 @@ backward goes on. ``step()`` waits for every bucket, writes the reduced
 gradients back and applies the wrapped optimizer.
 
 The all-reduces go through ``torch.distributed`` in every initialised world,
-a world of one rank included.
+a world of one rank included. Under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` each
+bucket takes the three-stage hierarchical path instead
+(:func:`~horovod_tpu_torch.collectives.ops.allreduce_async_` routes it, as
+the JAX optimizer gets it through ``grouped_allreduce``): the hook queues
+all three stages on a side stream, so they run during backward as the flat
+all-reduce does, and the result, a new tensor, is copied back into the
+gradient in ``synchronize()``.
 
 With ``op=Adasum`` all gradients form ONE bucket: the JAX result has one
 ``(ca, cb)`` pair per butterfly level over the concatenation of every
@@ -123,7 +129,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _launch(self, bucket: _Bucket) -> None:
         wires = [(p, self._compression.compress(p.grad)) for p in bucket.params]
         if len(wires) == 1 and wires[0][1][0] is bucket.params[0].grad:
-            buf = bucket.params[0].grad.reshape(-1)  # reduced in place
+            # Reduced in place on the flat path; the hierarchical path pads
+            # a copy and returns a new tensor.
+            buf = bucket.params[0].grad.reshape(-1)
         else:
             buf = torch.cat([w.reshape(-1) for _, (w, _) in wires])
         handle = _ops.allreduce_async_(

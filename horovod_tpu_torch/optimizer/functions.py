@@ -1,19 +1,24 @@
-"""State broadcast helpers.
+"""State broadcast, object and join helpers.
 
 Counterpart of ``horovod_tpu/optimizer/functions.py`` (reference
-``horovod/torch/functions.py``): run once at startup or after a restore so
-every rank starts from ``root_rank``'s parameters and optimizer state.
+``horovod/torch/functions.py``): the broadcasts run once at startup or after
+a restore so every rank starts from ``root_rank``'s parameters and optimizer
+state; ``broadcast_object`` and ``allgather_object`` carry picklable Python
+objects (a resume epoch, per-rank metrics) over the gloo CPU group, not
+NCCL; ``join_allreduce`` is the uneven-data gradient reduction.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..collectives import ops as _ops
+from ..collectives.join import join_allreduce as _join_allreduce
 from ..core import context_api as _ctx
+from ..core.process_sets import ProcessSet
 
 
 def _tensors(params: Any):
@@ -58,3 +63,47 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     for group, h in zip(optimizer.param_groups, hyper):
         group.update(h)
     return optimizer
+
+
+def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
+    """``root_rank``'s picklable object, on every rank (reference:
+    ``hvd.broadcast_object``). A world of one returns ``obj``."""
+    if _ctx.size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, root_rank, group=_ops._cpu_group(None))
+    return box[0]
+
+
+def allgather_object(obj: Any) -> list:
+    """Every rank's picklable object, in rank order, on every rank
+    (reference: ``hvd.allgather_object``). A world of one gives
+    ``[obj]``."""
+    if _ctx.size() == 1:
+        return [obj]
+    out: list = [None] * _ctx.size()
+    dist.all_gather_object(out, obj, group=_ops._cpu_group(None))
+    return out
+
+
+def join_allreduce(grads, have_data, *, op: str = _ops.Average,
+                   process_set: Optional[ProcessSet] = None):
+    """Uneven-data gradient reduction, of one tensor or of each of a list:
+    the JAX package's rendering of ``hvd.join()``, here a call of
+    :func:`horovod_tpu_torch.collectives.join.join_allreduce`.
+    ``have_data`` is this rank's flag; a rank without data contributes
+    zeros, and Average divides by the number of members with data (at
+    least 1), so with nobody's data the result is zeros. A rank outside
+    ``process_set`` reduces alone, as the JAX package's singleton groups
+    do."""
+    return _join_allreduce(grads, have_data, op,
+                           process_set=process_set)
+
+
+def join() -> int:
+    """The reference's ``hvd.join()`` return value, the last rank, as the
+    JAX package's shim gives it: every rank of a world of processes calls
+    each collective of a step, so there is nothing to wait for. For uneven
+    data use :func:`join_allreduce` (or ``collectives.join``) in the
+    step."""
+    return _ctx.size() - 1

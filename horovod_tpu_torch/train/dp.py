@@ -10,7 +10,9 @@ Each rank passes its own shard of the global batch. ``accum_steps`` splits
 it into microbatches (:func:`~horovod_tpu_torch.train.step_builder.
 accumulate_gradients`). With more than one rank the step averages the loss
 and, after the update, the model's BatchNorm running statistics, as the JAX
-step does. This slice leaves out the reference's ``scan_steps``,
+step does. ``HOROVOD_HIERARCHICAL_ALLREDUCE`` reaches every Average of the
+step through ``collectives/ops.py``: the gradient buckets, the loss and the
+statistics. This slice leaves out the reference's ``scan_steps``,
 ``autotune`` and ``sentinel`` options (listed in ROADMAP.md).
 """
 

@@ -22,6 +22,15 @@
 - B1, B2 and B3 at BERT-Large's attention shape (8 x 512 tokens, 16 heads
   of 64, not causal, a ragged key-padding bias), in bf16 and f32.
 - The bf16 LM head's cuBLAS products against its CPU version.
+- ResNetTiny and a bottleneck ResNet with the space_to_depth stem, f32 with
+  TF32 off, channels_last on the card against the plain layout on the CPU:
+  logits, gradients and running statistics (``-k layout``).
+- Across 2 and 4 GPUs (``-k hierarchical``), in a world declared 2 x 1 or 2
+  x 2: the hierarchical all-reduce against the flat one per element, on a
+  tensor and on ``DistributedOptimizer``'s hook path; ``hierarchical_adasum``
+  with log2(cross) launches of B4 and B5 against the plain composition; and
+  alltoall and allgather, flat and staged, bit-exact against plain
+  constructions from point-to-point sends and broadcasts.
 - ``ResNetTiny`` with SyncBatchNorm over NCCL on 2 and 4 GPUs against one
   process on the whole batch, with its all-reduces counted (``-k
   sync_batch_norm``).
@@ -298,6 +307,54 @@ def test_bf16_lm_head_on_the_card_matches_the_cpu(cuda):
         assert ratio <= 1.0, f"{what}: worst err/tol {ratio:.3f}"
 
 
+@pytest.mark.parametrize("name", ["tiny", "bottleneck-s2d"])
+def test_resnet_layout_on_the_card_matches_the_cpu(cuda, name):
+    """The ResNet runs channels_last on the card and in the plain layout on
+    the CPU (``models/resnet.py``). Same f32 weights and batch, TF32 off,
+    one training forward and backward: logits, every parameter's gradient
+    and the running statistics per element within 1e-4 (|ref| + RMS(ref)).
+    Both sides compute in f32 in other summation orders (cuDNN against the
+    CPU's convolutions), about 1e-6 of the magnitudes a layer; BatchNorm's
+    normalisation and its backward carry that through the layers, and 1e-4
+    leaves a margin of more than ten for it."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import resnet
+    make = {
+        "tiny": lambda dev: resnet.ResNetTiny(
+            num_classes=10, dtype=torch.float32, device=dev),
+        "bottleneck-s2d": lambda dev: resnet.ResNet(
+            [1, 1], resnet.BottleneckResNetBlock, num_classes=10, width=8,
+            dtype=torch.float32, stem="space_to_depth", device=dev),
+    }[name]
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(8, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    models = {"cpu": make("cpu"), "cuda": make("cuda")}
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    layouts = []
+    models["cuda"].conv_init.register_forward_pre_hook(
+        lambda mod, args: layouts.append(args[0].is_contiguous(
+            memory_format=torch.channels_last)))
+    res = {}
+    for dev, model in models.items():
+        logits = model(images.to(dev))
+        F.cross_entropy(logits, labels.to(dev)).backward()
+        res[dev] = {"logits": logits.detach().cpu()}
+        res[dev].update({"grad/" + k: p.grad.cpu()
+                         for k, p in model.named_parameters()})
+        res[dev].update({"stat/" + k: b.cpu()
+                         for k, b in model.named_buffers()
+                         if b.is_floating_point()})
+    assert layouts == [True]
+    worst = {}
+    for key, ref in res["cpu"].items():
+        tol = 1e-4 * (ref.abs() + ref.square().mean().sqrt())
+        worst[key] = ((res["cuda"][key] - ref).abs() / tol).max().item()
+    key = max(worst, key=worst.get)
+    print(f"resnet {name} layout: worst err/tol {worst[key]:.4f} at {key}")
+    assert worst[key] <= 1.0, (key, worst[key])
+
+
 _WORKER = textwrap.dedent("""
     import sys
     import numpy as np
@@ -400,16 +457,197 @@ _RESNET_WORKER = textwrap.dedent("""
 """)
 
 
-def run_world(out_dir, n, device, opt_name, worker=_WORKER):
+_COLLECTIVES_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.core import context_api
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.train import next_token_loss
+
+    out_dir, _, name = sys.argv[1:4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    stages = ops.hierarchical_allreduce_async_.launches
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    out = {"layout": [hvd.cross_size(), hvd.local_size()]}
+
+    def bound_ratio(got, ref, local):
+        # |got - ref| over 2^-21 sum_i |x_i| / n, the summation-order bound
+        absum = local.abs()
+        dist.all_reduce(absum)
+        tol = 2 ** -21 * absum / n
+        err = (got - ref).abs()
+        assert bool((err[tol == 0] == 0).all())
+        return (err / tol.clamp_min(1e-38)).max().item()
+
+    # The hierarchical all-reduce of one odd-sized tensor against the flat.
+    x = torch.randn(1_000_003, generator=gen, device="cuda")
+    before = dict(stages)
+    with ops.hierarchical_override(True):
+        hier = hvd.allreduce(x, hvd.Average)
+    out["tensor_launches"] = [stages[s] - before[s] for s in ops.HIER_STAGES]
+    with ops.hierarchical_override(False):
+        flat = hvd.allreduce(x, hvd.Average)
+    out["tensor_err_over_tol"] = bound_ratio(hier, flat, x)
+
+    # The hook path: the buckets' stages chained on the side stream.
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=512, max_seq_len=128,
+                      dtype=torch.float32, use_flash=True)
+    model = Llama(cfg, seed=0)
+    params = list(model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.0),
+        named_parameters=model.named_parameters())
+    tokens = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    local = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+        next_token_loss(model(tokens), tokens), params)])
+    reduced = {}
+    for mode in (True, False):
+        with ops.hierarchical_override(mode):
+            before = dict(stages)
+            opt.zero_grad()
+            next_token_loss(model(tokens), tokens).backward()
+            opt.synchronize()
+            reduced[mode] = torch.cat([p.grad.reshape(-1) for p in params])
+            out[f"hook_launches_{mode}"] = [stages[s] - before[s]
+                                            for s in ops.HIER_STAGES]
+    out["buckets"] = len(opt.buckets)
+    out["hook_err_over_tol"] = bound_ratio(reduced[True], reduced[False],
+                                           local)
+
+    # hierarchical_adasum against the sum within each node, then the plain
+    # butterfly across the nodes.
+    v = torch.randn((1 << 20) + 3, generator=gen, device="cuda")
+    fused.reset_launch_counts()
+    got = hvd.hierarchical_adasum(v)
+    torch.cuda.synchronize()
+    out["adasum_launches"] = [f.launches for f in fused.KERNELS.values()]
+    every = [torch.empty_like(v) for _ in range(n)]
+    dist.all_gather(every, v)
+    cross, intra = out["layout"]
+    pad = (-v.numel()) % intra
+    sums = [torch.cat([sum(every[c * intra:(c + 1) * intra]),
+                       v.new_zeros(pad)]) for c in range(cross)]
+    m = sums[0].numel() // intra
+    shards = []
+    for i in range(intra):  # coefficients per shard, as in the JAX package
+        vecs = [x[i * m:(i + 1) * m] for x in sums]
+        d = 1
+        while d < cross:
+            vecs = [fused._plain_combine(vecs[j], vecs[j ^ d])
+                    for j in range(cross)]
+            d *= 2
+        shards.append(vecs[0])
+    ref = torch.cat(shards)[:v.numel()]
+    tol = 1e-5 * (ref.abs() + ref.square().mean().sqrt())
+    out["adasum_err_over_tol"] = ((got - ref).abs() / tol).max().item()
+
+    # alltoall and allgather against point-to-point and broadcast.
+    a = torch.randn((8, 1280, 64), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    got = hvd.alltoall(a)
+    c = a.shape[0] // n
+    want = torch.empty_like(a)
+    ops_ = []
+    for p in range(n):
+        if p == rank:
+            want[p * c:(p + 1) * c] = a[p * c:(p + 1) * c]
+        else:
+            ops_ += [dist.P2POp(dist.isend, a[p * c:(p + 1) * c].clone(), p),
+                     dist.P2POp(dist.irecv, want[p * c:(p + 1) * c], p)]
+    for work in dist.batch_isend_irecv(ops_):
+        work.wait()
+    out["alltoall_equal"] = bool(torch.equal(got, want))
+    g = torch.randn((1000, 33), generator=gen, device="cuda")
+    want = torch.empty((n * 1000, 33), device="cuda")
+    for p in range(n):
+        buf = g.clone() if p == rank else torch.empty_like(g)
+        dist.broadcast(buf, p)
+        want[p * 1000:(p + 1) * 1000] = buf
+    ctx = context_api.context()
+    flat_gather = hvd.allgather(g)
+    ctx.config.hierarchical_allgather = True
+    staged = hvd.allgather(g)
+    out["allgather_equal"] = [bool(torch.equal(flat_gather, want)),
+                              bool(torch.equal(staged, want))]
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+    hvd.shutdown()
+""")
+
+
+_HIER_RUNS: dict = {}
+
+
+def hierarchical_world(tmp_path, n):
+    """Each rank's results of ``_COLLECTIVES_WORKER`` in a world of n cards
+    declared n/2 x 2 (4 cards) or 2 x 1 (2 cards); one run per n."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} GPUs")
+    if n not in _HIER_RUNS:
+        ranks = run_world(str(tmp_path), n, "cuda", "hierarchical",
+                          _COLLECTIVES_WORKER,
+                          env={"HOROVOD_LOCAL_SIZE": str(n // 2)})
+        _HIER_RUNS[n] = [json.loads(str(r["result"])) for r in ranks]
+    return _HIER_RUNS[n]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_hierarchical_matches_flat_across_gpus(cuda, tmp_path, n):
+    """Per element, the hierarchical Average within 2^-21 sum_i |x_i| / n of
+    the flat one: each side sums the n terms with n - 1 roundings of at
+    most 2^-24 of the summed magnitudes, and dividing by n = 2 or 4 is
+    exact. On a tensor (3 stages, one launch each) and on the optimizer's
+    hook path (3 stages per bucket, none when flat)."""
+    ranks = hierarchical_world(tmp_path, n)
+    for r in ranks:
+        assert r["layout"] == [2, n // 2]
+        assert r["tensor_launches"] == [1, 1, 1]
+        assert r["hook_launches_True"] == [r["buckets"]] * 3
+        assert r["hook_launches_False"] == [0, 0, 0]
+        assert r["tensor_err_over_tol"] <= 1.0, r
+        assert r["hook_err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_hierarchical_adasum_launches_b4_b5_across_gpus(cuda, tmp_path, n):
+    """B4 and B5 launch once per butterfly level across the 2 nodes, and
+    the result is within 1e-5 (|ref| + RMS(ref)) of the node sums combined
+    by the plain butterfly shard by shard, as the JAX package combines them
+    (the f64 sums differ only in order)."""
+    ranks = hierarchical_world(tmp_path, n)
+    for r in ranks:
+        assert r["adasum_launches"] == [1, 1]
+        assert r["adasum_err_over_tol"] <= 1.0, r
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_alltoall_and_allgather_bit_exact_across_gpus(cuda, tmp_path, n):
+    ranks = hierarchical_world(tmp_path, n)
+    for r in ranks:
+        assert r["alltoall_equal"]
+        assert r["allgather_equal"] == [True, True]
+
+
+def run_world(out_dir, n, device, opt_name, worker=_WORKER, env=None):
     """Run ``worker`` in a world of ``n`` processes with the optimizer
-    ``opt_name``; return each rank's saved arrays."""
+    ``opt_name`` and the extra environment ``env``; return each rank's
+    saved arrays."""
     script = os.path.join(out_dir, "worker.py")
     with open(script, "w") as f:
         f.write(worker)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     if n > 1:
         env.update(HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}",
                    HOROVOD_NUM_PROCESSES=str(n))

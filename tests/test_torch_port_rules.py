@@ -14,6 +14,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import horovod_tpu_torch as thvd
 
@@ -221,3 +222,102 @@ def test_models_default_to_the_card(make):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             build()
+
+
+#: Names of the JAX package's collective surface with no counterpart in the
+#: port, each with the ROADMAP.md text that accounts for it.
+UNPORTED = {"eager": "`collectives/eager.py` has its counterpart in "
+                     "`ops.py`"}
+
+
+def _reference_collective_names():
+    """``horovod_tpu.collectives.__all__`` and the names the top level
+    imports from ``.collectives``, read from the sources (no jax import)."""
+    ref = REPO / "horovod_tpu"
+    tree = ast.parse((ref / "collectives" / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            names |= {e.value for e in node.value.elts}
+    top = set()
+    for node in ast.parse((ref / "__init__.py").read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module == "collectives":
+            top |= {a.name for a in node.names}
+    return names, top
+
+
+def test_every_reference_collective_has_a_counterpart_or_a_roadmap_entry():
+    """Each name exported by ``horovod_tpu.collectives``, and each name the
+    JAX package's top level takes from it, is exported by the port at the
+    same place, or accounted for in ROADMAP.md: a later slice cannot drop
+    one silently."""
+    import horovod_tpu_torch.collectives as tcol
+    names, top = _reference_collective_names()
+    assert len(names) > 25 and top <= names | {"eager"}
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    missing = []
+    for name in sorted(names):
+        if name in UNPORTED:
+            assert UNPORTED[name] in roadmap, name
+            continue
+        if not hasattr(tcol, name) or name not in tcol.__all__:
+            missing.append(f"collectives.{name}")
+    for name in sorted(top - set(UNPORTED)):
+        if getattr(thvd, name, None) is not getattr(tcol, name, None):
+            missing.append(name)
+    assert missing == []
+
+
+def test_hierarchical_flag_in_a_world_of_one_issues_no_collective(
+        monkeypatch):
+    """As the JAX package drops the collectives of a 1-member axis, the
+    flag adds nothing in a world of one: no reduce-scatter, all-gather or
+    group, and a ``DistributedOptimizer`` step still all-reduces its
+    buckets once each, flat."""
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.core.config import Config
+    issued = {"all_reduce": 0, "reduce_scatter_tensor": 0,
+              "all_gather_into_tensor": 0, "new_group": 0}
+    thvd.init(device="cpu", config=Config(hierarchical_allreduce=True,
+                                          hierarchical_allgather=True))
+    try:
+        for name in issued:
+            real = getattr(torch.distributed, name)
+
+            def counting(*a, _name=name, _real=real, **k):
+                issued[_name] += 1
+                return _real(*a, **k)
+            monkeypatch.setattr(torch.distributed, name, counting)
+        before = dict(ops.hierarchical_allreduce_async_.launches)
+        model = torch.nn.Sequential(torch.nn.Linear(8, 16),
+                                    torch.nn.Linear(16, 4))
+        opt = thvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                        lr=0.1))
+        model(torch.randn(4, 8)).square().sum().backward()
+        opt.step()
+        x = torch.arange(6.0)
+        assert torch.equal(thvd.allreduce(x, thvd.Sum), x)
+        assert torch.equal(thvd.allgather(x), x)
+        assert issued == {"all_reduce": len(opt.buckets) + 1,
+                          "reduce_scatter_tensor": 0,
+                          "all_gather_into_tensor": 0, "new_group": 0}
+        assert ops.hierarchical_allreduce_async_.launches == before
+    finally:
+        thvd.shutdown()
+
+
+def test_declared_layout_must_cover_the_world(monkeypatch):
+    monkeypatch.setenv("HOROVOD_LOCAL_SIZE", "3")
+    with pytest.raises(ValueError, match="HOROVOD_LOCAL_SIZE=3"):
+        thvd.init(device="cpu")
+    assert not thvd.is_initialized()
+    assert not dist.is_initialized()  # the rejection leaves no world behind
+    monkeypatch.delenv("HOROVOD_LOCAL_SIZE")
+    with pytest.raises(ValueError, match=r"mesh \(2, 1\)"):
+        thvd.init(device="cpu", mesh=(2, 1))
+    assert not dist.is_initialized()
+    thvd.init(device="cpu", mesh=(1, 1))
+    try:
+        assert (thvd.local_size(), thvd.cross_size()) == (1, 1)
+    finally:
+        thvd.shutdown()
