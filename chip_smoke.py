@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
-and of its Adasum, hierarchical and collective paths across up to four
-cards where the machine has them.
+and of its Adasum, hierarchical, collective and context-parallel paths
+across up to four cards where the machine has them.
 
     python3 chip_smoke.py
 
@@ -117,15 +117,55 @@ Phases, one line each; any failure raises and the script exits nonzero:
    the materialised softmax of ``models/bert.py``, at T = 128, 256, 512 and
    1024: the shortest T from which flash is faster (``models/_flash.py``'s
    ``AUTO_MIN_SEQ``).
+13. context — context-parallel training (``attention_impl`` "ring" and
+   "ulysses", ``make_gspmd_train_step``); it runs right after phase 4, before
+   this process allocates anything on the cards, and like it needs two
+   ranks: on one card it prints that and runs nothing. With 2 or more cards
+   it starts an NCCL world of 2 (one of 4 too on 4 cards) and trains the
+   Llama-3-8B-width model cut to 2 layers, at its full T = 8192 tokens a
+   sequence, on ``{"sp": n}`` and, on 4 cards, ``{"dp": 2, "sp": 2}``: one
+   sequence a dp row, remat "dots" (the default), AdamW, 4 steps, the last
+   under ``torch.profiler`` on the last rank (the slowest). Rank 0
+   first runs the dense model (no mesh, B1-B3 over the whole sequence) on
+   the same global batch and weights. Requires B1 launched 2 (r + 1) times
+   a layer a step on the rank at sp index r under the ring (its forward,
+   then its recompute) and never under Ulysses, B2 and B3 never (the
+   ring's residual backward is the plain recompute, as in JAX), finite
+   losses, parameters bit-identical on every rank, the first loss within
+   1e-3 relative of the dense model's and each reduced gradient of the
+   first step within 2^-4 normwise (||g - ref|| / ||ref||) of the dense
+   model's. Both models compute in bf16, and the two attentions round
+   differently (the ring merges f32 partials of bf16 outputs, Ulysses
+   casts a materialised f32 softmax to bf16); their differences pass
+   through the rest of the model, so the gradients are held normwise
+   (the element-wise ratio is printed beside it). Losing the K/V
+   cotangents of the other ranks' queries would put half the attention
+   weights' gradient off, about 0.5 normwise. Prints the step time,
+   tokens/s/GPU and the peak memory.
+14. longctx — remat on one card: the same model, 1 x 8192 tokens, AdamW,
+   4 steps under each arm of ``with_remat_policy`` (none, dots, dots_attn,
+   attn, full), each from the same weights, the last profiled. Requires per step B1 launched
+   twice a layer under dots and full (forward and recompute) and once
+   under the others, B2 and B3 once a layer; each arm's gradients on the
+   same batch within 2^-7 (|ref| + RMS(ref)) per element, one bf16 ulp, of
+   the none arm's (the recompute repeats the same products; the
+   embedding's scatter-add is not ordered); and peak memory
+   (``max_memory_allocated`` over the arm's steps) with none >= dots_attn
+   >= dots > full. Then B1, B2 and B3 at the phase's shape (B=1, T=8192,
+   H=32, D=128, causal, bf16) and B1 at the ring's shapes (T_local 4096 and
+   2048, causal and not) against their plain versions (8 heads at a time)
+   at the tolerances below, each timed beside its bound, its plain version
+   and ``F.scaled_dot_product_attention``.
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are those of
 its main path alone: phase 7's run for B1-B3, phase 3's for B4 and B5 (0 on
 one card). ``launches_by_path`` gives each path's own count beside it, each
 read from a run whose counts were set to 0 just before it: ``train`` (phase
-7), ``bert`` (phase 10), ``adasum`` (phase 3) and ``collectives`` (phase 4,
+7), ``bert`` (phase 10), ``adasum`` (phase 3), ``collectives`` (phase 4,
 its three checked steps for B1-B3 and its ``hierarchical_adasum`` call for
-B4 and B5).
+B4 and B5), ``longctx`` (phase 14, every arm's steps) and ``context``
+(phase 13, rank 0's checked steps).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -387,7 +427,8 @@ def small_model_check(torch, hvd_llama):
     from horovod_tpu_torch.train import next_token_loss
     base = hvd_llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
                                  n_heads=4, n_kv_heads=2, hidden_dim=512,
-                                 max_seq_len=256, dtype=torch.float32)
+                                 max_seq_len=256, dtype=torch.float32,
+                                 remat=False)
     gen = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, 512, (2, 200), generator=gen, device="cuda")
     out = {}
@@ -643,7 +684,7 @@ def adasum_worker(out_dir):
     hvd.init()
     rank, n = hvd.rank(), hvd.size()
     cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
-                              use_flash=True)
+                              use_flash=True, remat=False)
     model = hvd_llama.Llama(cfg, seed=rank)  # the broadcast makes them equal
     params = list(model.parameters())
     opt = hvd.DistributedOptimizer(
@@ -845,7 +886,7 @@ def collectives_worker(out_dir):
 
     # (a) Hierarchical Average at full width, 3 checked steps.
     cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
-                              use_flash=True)
+                              use_flash=True, remat=False)
     res["n_layers"] = cfg.n_layers
     model = hvd_llama.Llama(cfg, seed=rank)  # the broadcast makes them equal
     params = list(model.parameters())
@@ -1222,6 +1263,371 @@ def collectives_phase(torch, card):
     return total
 
 
+#: The remat arms of the ``longctx`` phase (``with_remat_policy``'s
+#: vocabulary) and B1's launches per layer per step under each: the
+#: forward, and under "dots" and "full", whose policies do not save B1's
+#: outputs, its recompute in backward.
+ARMS = ("none", "dots", "dots_attn", "attn", "full")
+B1_PER_LAYER = {"none": 1, "dots": 2, "dots_attn": 1, "attn": 1, "full": 2}
+#: Gates of the ``context`` phase against the dense single-rank model.
+CP_LOSS_RTOL = 1e-3
+CP_GRAD_NORMWISE = 2 ** -4
+
+
+def host_grads(model):
+    """The model's gradients, copied to the host, by parameter name."""
+    return {n: p.grad.to("cpu") for n, p in model.named_parameters()}
+
+
+def grad_gaps(torch, model, ref):
+    """Each gradient of ``model`` against ``ref`` (on the host), tensor by
+    tensor on the card: the largest ``|g - ref| / (2^-7 (|ref| +
+    RMS(ref)))``, the largest normwise ``||g - ref|| / ||ref||``, and how
+    many tensors are bit-identical."""
+    per_elem, normwise, equal = 0.0, 0.0, 0
+    for name, p in model.named_parameters():
+        want = ref[name].to(p.device)
+        got = p.grad.float()
+        err = (got - want).abs()
+        rms = want.square().mean().sqrt()
+        per_elem = max(per_elem, (err / (2 ** -7 * (want.abs() + rms))
+                                  .clamp_min(1e-38)).max().item())
+        normwise = max(normwise, (err.norm() / want.norm()).item())
+        equal += int(torch.equal(got, want))
+        del want, got, err
+    return per_elem, normwise, equal
+
+
+def context_worker(out_dir):
+    """One rank of the ``context`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import axis_size, create_mesh
+    from horovod_tpu_torch.train import (create_train_state,
+                                         make_gspmd_train_step,
+                                         next_token_loss, shard_tokens)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    layouts = [{"sp": n}] + ([{"dp": 2, "sp": n // 2}] if n >= 4 else [])
+    runs = []
+    for axes in layouts:
+        mesh = create_mesh(axes)
+        dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+        for impl in ("ring", "ulysses"):
+            cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                                      use_flash=True, attention_impl=impl)
+            T = cfg.max_seq_len
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            tokens = torch.randint(0, cfg.vocab_size, (dp, T),
+                                   generator=gen, device="cuda")
+            model = hvd_llama.Llama(cfg, seed=0)
+            res = {"axes": axes, "impl": impl, "dp": dp, "sp": sp,
+                   "sp_index": mesh.axis("sp").index, "T": T,
+                   "n_layers": cfg.n_layers}
+            ref = None
+            if rank == 0:
+                # The dense model on the whole batch: no ambient mesh, so
+                # attention is B1-B3 over all T; no optimizer hooks yet.
+                dense = next_token_loss(model(tokens), tokens)
+                dense.backward()
+                res["dense_loss"] = dense.item()
+                ref = host_grads(model)
+                model.zero_grad(set_to_none=True)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                  weight_decay=1e-4),
+                named_parameters=model.named_parameters())
+            state = create_train_state(model, opt)
+            step = make_gspmd_train_step(model, opt, mesh)
+            shard = shard_tokens(tokens, mesh)
+            synchronize = opt.synchronize
+
+            def check_first_step():
+                """The first step's reduced gradient against the dense
+                model's, before the update."""
+                synchronize()
+                if ref is not None and "grad" not in res:
+                    res["grad"] = grad_gaps(torch, model, ref)
+
+            opt.synchronize = check_first_step
+            torch.cuda.reset_peak_memory_stats()
+            losses, times, launches = [], [], []
+            for i in range(4):
+                fa.reset_launch_counts()
+                torch.cuda.synchronize()
+                with (torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                      if i == 3 and rank == n - 1
+                      else contextlib.nullcontext()) as prof:
+                    t = time.perf_counter()
+                    state, loss = step(state, shard)
+                    losses.append(loss.item())
+                    times.append(time.perf_counter() - t)
+                launches.append({k: f.launches
+                                 for k, f in fa.KERNELS.items()})
+            if rank == n - 1:
+                res["profile"] = device_breakdown(prof, times[-1],
+                                                  MODEL_GROUPS)
+            differ = 0
+            for p in model.parameters():
+                buf = p.detach().clone()
+                dist.broadcast(buf, 0)
+                differ += int(not torch.equal(buf, p))
+            res.update(losses=losses, times=times, launches=launches,
+                       params_differing_from_rank0=differ,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            runs.append(res)
+            del (state, step, opt, model, ref, shard, synchronize,
+                 check_first_step, buf, prof)
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs}, f)
+    hvd.shutdown()
+    return 0
+
+
+def context_phase(torch, card):
+    """The ``context`` phase (module doc). Returns rank 0's launches of
+    B1-B3 over its checked steps, or zeros on one card."""
+    zeros = dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("context", "one card: context parallelism shards the sequence "
+                       "over an sp axis of 2 or more ranks; on one card "
+                       "the phase runs nothing")
+        return zeros
+    total = dict(zeros)
+    for n in [2] + ([4] if cards >= 4 else []):
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+               if n < cards else None)
+        ranks = run_world("context", n, env)
+        for res in ranks:
+            for run in res["runs"]:
+                what = (f"{n} ranks, {run['axes']}, {run['impl']}, rank "
+                        f"{res['rank']}")
+                b1 = (2 * (run["sp_index"] + 1) * run["n_layers"]
+                      if run["impl"] == "ring" else 0)
+                want = {"fa_fwd": b1, "fa_bwd_dq": 0, "fa_bwd_dkv": 0}
+                if run["launches"] != [want] * len(run["launches"]):
+                    raise AssertionError(f"{what}: B1-B3 launches per step "
+                                         f"{run['launches']}, expected "
+                                         f"{want}")
+                if not all(math.isfinite(x) for x in run["losses"]):
+                    raise AssertionError(f"{what}: non-finite loss "
+                                         f"{run['losses']}")
+                if run["params_differing_from_rank0"]:
+                    raise AssertionError(
+                        f"{what}: {run['params_differing_from_rank0']} "
+                        "parameters differ from rank 0's")
+        for i, run in enumerate(ranks[0]["runs"]):
+            what = f"{n} ranks, {run['axes']}, {run['impl']}"
+            rel = abs(run["losses"][0] - run["dense_loss"]) / run["dense_loss"]
+            per_elem, normwise, equal = run["grad"]
+            if not rel <= CP_LOSS_RTOL:
+                raise AssertionError(f"{what}: first loss {run['losses'][0]}"
+                                     f" vs dense {run['dense_loss']}")
+            if not normwise <= CP_GRAD_NORMWISE:
+                raise AssertionError(f"{what}: gradient off the dense "
+                                     f"model's by {normwise:.4f} normwise")
+            timed = sorted(run["times"][1:-1])
+            step_s = timed[len(timed) // 2]
+            b1 = [r["runs"][i]["launches"][0]["fa_fwd"] for r in ranks]
+            log("context", f"{what} over NCCL, llama3_8b width, 2 layers, "
+                           f"T = {run['T']} ({run['T'] // run['sp']} a "
+                           f"rank), remat dots, AdamW: losses "
+                           f"{run['losses']}; first vs the dense model "
+                           f"{run['dense_loss']:.6f} (rel {rel:.2e}, gate "
+                           f"{CP_LOSS_RTOL}); step-1 gradient vs dense: "
+                           f"normwise {normwise:.2e} (gate 2^-4), per "
+                           f"element {per_elem:.3f} of 2^-7 (|ref| + RMS), "
+                           f"{equal} tensors bit-equal; step "
+                           f"{step_s * 1e3:.1f} ms (first "
+                           f"{run['times'][0] * 1e3:.1f} ms); "
+                           f"{run['dp'] * run['T'] / n / step_s:.0f} "
+                           f"tokens/s/GPU; B1 per step by rank {b1}; "
+                           f"parameters bit-identical on every rank; peak "
+                           f"{run['peak_gb']:.1f} GB; on {card}")
+            log("context", f"{what}, rank {n - 1} (the last on sp), step 4 "
+                           f"under torch.profiler: "
+                           f"{ranks[-1]['runs'][i]['profile']}")
+            for k in total:
+                total[k] += sum(x[k] for x in run["launches"])
+    return total
+
+
+def long_case(fa, torch, *, B, T, H, D, causal, backward, seed):
+    """B1 (and with ``backward`` B2 and B3) at a long-context shape in bf16
+    against the plain versions, which run 8 heads at a time to bound their
+    [T, T] f32 scores; returns the worst error of each kernel and the ms of
+    each, its plain version and SDPA."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: torch.randn((B, T, H, D), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    kw = dict(causal=causal, scale=D ** -0.5)
+    heads = [slice(h, h + 8) for h in range(0, H, 8)]
+
+    def plain(fn, *args, dims):
+        parts = [fn(*(a[:, h] if a.dim() == 3 else a[:, :, h]
+                      for a in args), **kw) for h in heads]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p, dim=d) for p, d in zip(zip(*parts),
+                                                             dims))
+        return torch.cat(parts, dim=dims[0])
+
+    worst = lambda *pairs: max(pairs, key=lambda p: p[1])
+    o, m, l = fa.fa_fwd(q, k, v, **kw)
+    ro, rm, rl = plain(fa._reference_partial, q, k, v, dims=(2, 1, 1))
+    errs = {"fa_fwd": worst(check("B1 o", o, ro, "bf16"),
+                            check("B1 m", m, rm, "f32"),
+                            check("B1 l", l, rl, "f32"))}
+    del ro, rm, rl
+    ms = {"fa_fwd": (time_ms(lambda: fa.fa_fwd(q, k, v, **kw), 10),
+                     time_ms(lambda: plain(fa._reference_partial, q, k, v,
+                                           dims=(2, 1, 1)), 1))}
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=kw["scale"])
+    with torch.no_grad():
+        library = {"fa_fwd": time_ms(sdpa)}
+    if backward:
+        dsum = fa._row_dsum(do, o)
+        args = (q, k, v, do, m, l, dsum)
+        dq = fa.fa_bwd_dq(*args, **kw)
+        errs["fa_bwd_dq"] = check("B2 dq", dq, plain(fa._plain_bwd_dq, *args,
+                                                      dims=(2,)), "bf16")
+        dk, dv = fa.fa_bwd_dkv(*args, **kw)
+        rdk, rdv = plain(fa._plain_bwd_dkv, *args, dims=(2, 2))
+        errs["fa_bwd_dkv"] = worst(check("B3 dk", dk, rdk, "bf16"),
+                                   check("B3 dv", dv, rdv, "bf16"))
+        del dq, dk, dv, rdk, rdv
+        ms["fa_bwd_dq"] = (time_ms(lambda: fa.fa_bwd_dq(*args, **kw), 10),
+                           time_ms(lambda: plain(fa._plain_bwd_dq, *args,
+                                                 dims=(2,)), 1))
+        ms["fa_bwd_dkv"] = (time_ms(lambda: fa.fa_bwd_dkv(*args, **kw), 10),
+                            time_ms(lambda: plain(fa._plain_bwd_dkv, *args,
+                                                  dims=(2, 2)), 1))
+        out = sdpa()
+        dot = do.transpose(1, 2).contiguous()
+        library["fa_bwd_dq"] = library["fa_bwd_dkv"] = time_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                        retain_graph=True))
+    torch.cuda.synchronize()
+    return errs, ms, library
+
+
+def longctx_phase(torch, card, fmt):
+    """The ``longctx`` phase (module doc). Returns the launches of B1-B3
+    over every arm's steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (create_train_state,
+                                         make_train_step, next_token_loss)
+    hvd.init()
+    base = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                               use_flash=True)
+    T, layers, n_steps = base.max_seq_len, base.n_layers, 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, base.vocab_size, (1, T), generator=gen,
+                           device="cuda")
+    ref, peaks, total = None, {}, dict.fromkeys(fa.KERNELS, 0)
+    for arm in ARMS:
+        cfg = hvd_llama.with_remat_policy(base, arm)
+        model = hvd_llama.Llama(cfg, seed=0)
+        next_token_loss(model(tokens), tokens).backward()
+        if ref is None:
+            ref, gaps = host_grads(model), (0.0, 0.0, None)
+        else:
+            gaps = grad_gaps(torch, model, ref)
+            if not gaps[0] <= 1.0:
+                raise AssertionError(f"longctx {arm}: gradient off the none "
+                                     f"arm's by {gaps[0]:.3f} of 2^-7 "
+                                     "(|ref| + RMS(ref))")
+        model.zero_grad(set_to_none=True)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, next_token_loss)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        state, losses, times, prof = run_steps(torch, step, state, tokens,
+                                               tokens, n_steps)
+        launches = {k: f.launches for k, f in fa.KERNELS.items()}
+        peaks[arm] = torch.cuda.max_memory_allocated()
+        want = {"fa_fwd": B1_PER_LAYER[arm] * layers * n_steps,
+                "fa_bwd_dq": layers * n_steps, "fa_bwd_dkv": layers * n_steps}
+        if launches != want:
+            raise AssertionError(f"longctx {arm}: launches {launches} in "
+                                 f"{n_steps} steps, expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"longctx {arm}: non-finite loss {losses}")
+        for k in total:
+            total[k] += launches[k]
+        timed = sorted(times[1:-1])
+        step_s = timed[len(timed) // 2]
+        grad = ("the reference" if gaps[2] is None else
+                f"vs none: per element {gaps[0]:.3f} of 2^-7 (|ref| + RMS), "
+                f"normwise {gaps[1]:.2e}, {gaps[2]} tensors bit-equal")
+        log("longctx", f"remat {arm}: llama3_8b width, 2 layers, 1 x {T} "
+                       f"tokens, AdamW: losses {losses}; step "
+                       f"{step_s * 1e3:.1f} ms (first "
+                       f"{times[0] * 1e3:.1f} ms); {T / step_s:.0f} "
+                       f"tokens/s/GPU; peak {peaks[arm] / 1e9:.2f} GB; "
+                       f"launches per step "
+                       f"{ {k: v // n_steps for k, v in launches.items()} }; "
+                       f"gradient {grad}; on {card}")
+        log("longctx", f"remat {arm}, step {n_steps} under torch.profiler, "
+                       f"{times[-1] * 1e3:.1f} ms on the host clock: "
+                       f"{device_breakdown(prof, times[-1], MODEL_GROUPS)}")
+        del state, step, opt, model, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not (peaks["none"] >= peaks["dots_attn"] >= peaks["dots"]
+            > peaks["full"]):
+        raise AssertionError(f"longctx: peak bytes by arm {peaks}, expected "
+                             "none >= dots_attn >= dots > full")
+    hvd.shutdown()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = [(T, True, True)] + [(T // n, c, False) for n in (2, 4)
+                                 for c in (True, False)]
+    for t, causal, backward in cases:
+        errs, ms, library = long_case(fa, torch, B=1, T=t, H=32, D=128,
+                                      causal=causal, backward=backward,
+                                      seed=t + causal)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, (err, ratio) in errs.items():
+            bnd = bound(name, 1, 32, t, t, 128, causal, 2)
+            tflops = fa_flops(name, 1, 32, t, t, 128, causal) / (
+                ms[name][0] * 1e-3) / 1e12
+            log("longctx-kernels", f"{name} at B=1, T={t}, H=32, D=128, "
+                                   f"{'causal' if causal else 'not causal'}"
+                                   f", bf16: max err {err:.2e}, err/tol "
+                                   f"{ratio:.3f}; {ms[name][0]:.4f} ms, "
+                                   f"{tflops:.1f} TFLOP/s, "
+                                   f"{bnd[0] / ms[name][0]:.1%} of its "
+                                   f"bound ({bnd[0]:.4f} ms by {bnd[1]}); "
+                                   f"plain {ms[name][1]:.3f} ms; SDPA "
+                                   f"{library[name]:.4f} ms; on {card}")
+    return total
+
+
 def run_steps(torch, step, state, batch, labels, n_steps):
     """``n_steps`` train steps, the last under ``torch.profiler``; returns
     the state, the losses, each step's host-clock seconds and the profile."""
@@ -1331,7 +1737,7 @@ def bert_phase(torch, card):
     from horovod_tpu_torch.train import (create_train_state,
                                          make_train_step, masked_label_loss)
     hvd.init()
-    cfg = bert_large()
+    cfg = dataclasses.replace(bert_large(), remat=False)
     model = Bert(cfg, seed=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
@@ -1469,6 +1875,7 @@ def main():
     check_ptxas(_build.build_log)
     adasum_launches = adasum_phase(torch, card)
     collectives_launches = collectives_phase(torch, card)
+    context_launches = context_phase(torch, card)
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -1506,7 +1913,7 @@ def main():
 
     hvd.init()
     cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
-                              use_flash=True)
+                              use_flash=True, remat=False)
     model = hvd_llama.Llama(cfg, seed=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
@@ -1593,12 +2000,17 @@ def main():
     torch.cuda.empty_cache()
     bert_kernels_phase(torch, card, fmt)
     crossover_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    longctx_launches = longctx_phase(torch, card, fmt)
     errs.update(fused_errs)
     ms.update(fms)
     library.update(flib)
     bounds.update(fbounds)
     by_path = {name: {"train": count, "bert": bert_launches[name],
-                      "collectives": collectives_launches[name]}
+                      "collectives": collectives_launches[name],
+                      "longctx": longctx_launches[name],
+                      "context": context_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name]}
@@ -1627,4 +2039,6 @@ if __name__ == "__main__":
         sys.exit(adasum_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--collectives-worker"]:
         sys.exit(collectives_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--context-worker"]:
+        sys.exit(context_worker(sys.argv[2]))
     sys.exit(main())

@@ -10,6 +10,8 @@ Layout: flax stores dense kernels ``[in, out]`` (``x @ W``); the port keeps
 ``nn.Linear``'s ``[out, in]``, so every dense kernel, the LM head included,
 is transposed on the way across. Both flax layer layouts are read: unrolled
 ``block_i`` subtrees, and scanned ``layers/block`` with ``[L, ...]`` leaves.
+With ``tie_embeddings`` neither side has an LM head: the logits use the
+embedding.
 
 The ResNet and BERT pairs (:func:`resnet_params_from_flax`,
 :func:`bert_params_from_flax` and their inverses) do the same for those
@@ -20,10 +22,12 @@ statistics), and its conv kernels go from flax's HWIO to torch's OIHW.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from .models.llama import resolve_scan_layers
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w1", "w2", "w3")
@@ -48,8 +52,9 @@ def llama_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
     else:
         blocks = [p[f"block_{i}"] for i in range(cfg.n_layers)]
     sd = {"embedding": _np(p["embedding"]),
-          "final_norm.scale": _np(p["final_norm"]["scale"]),
-          "lm_head.weight": _np(p["lm_head"]).T}
+          "final_norm.scale": _np(p["final_norm"]["scale"])}
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = _np(p["lm_head"]).T
     for i, b in enumerate(blocks):
         pre = f"blocks.{i}."
         sd[pre + "attn_norm.scale"] = _np(b["attn_norm"]["scale"])
@@ -69,10 +74,13 @@ def _index_tree(tree, i):
 
 
 def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
-                         scanned: bool = False) -> Dict:
+                         scanned: Optional[bool] = None) -> Dict:
     """The port's ``state_dict`` → a flax parameter tree of numpy arrays,
     unrolled (``block_i``) or, with ``scanned``, stacked under
-    ``layers/block``."""
+    ``layers/block``. ``scanned=None`` takes the layout the JAX model of
+    ``cfg`` has (``resolve_scan_layers``)."""
+    if scanned is None:
+        scanned = resolve_scan_layers(cfg)
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
     blocks = []
     for i in range(cfg.n_layers):
@@ -86,8 +94,9 @@ def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
                     for n in _MLP},
         })
     out = {"embedding": sd["embedding"],
-           "final_norm": {"scale": sd["final_norm.scale"]},
-           "lm_head": sd["lm_head.weight"].T}
+           "final_norm": {"scale": sd["final_norm.scale"]}}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = sd["lm_head.weight"].T
     if scanned:
         out["layers"] = {"block": _stack_trees(blocks)}
     else:

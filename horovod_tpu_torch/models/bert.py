@@ -20,8 +20,9 @@ Places where a port of the JAX model goes wrong, kept as it computes:
   ``torch.backends.cuda.matmul.allow_tf32`` keeps its default, False.
 - The JAX config's ``type_vocab`` is declared but its model never uses it,
   so there is neither a token-type embedding nor the field here.
-- The JAX config's ``remat`` and ``remat_policy`` are not ported yet: the
-  port runs without recompute (ROADMAP.md, section A).
+- ``remat`` and ``remat_policy`` run each encoder block under
+  ``torch.utils.checkpoint`` with the Llama's policies
+  (``models/llama.py::_REMAT_POLICIES``), on by default as in JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from torch import nn
 # The JAX module exports its loss beside the model.
 from ..train.losses import mlm_loss  # noqa: F401
 from ._flash import resolve_flash
-from .llama import _default_device, _lecun_normal_
+from .llama import _default_device, _lecun_normal_, _remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,8 @@ class BertConfig:
     max_seq_len: int = 512
     norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    remat_policy: str = "dots"  # see models/llama.py LlamaConfig
     # None = auto: the flash kernels on CUDA for long sequences, the
     # materialised softmax elsewhere (models/_flash.py).
     use_flash: Optional[bool] = None
@@ -66,7 +69,8 @@ def bert_base() -> BertConfig:
 def bert_tiny(vocab: int = 256) -> BertConfig:
     """CPU test configuration (the JAX package's, in f32)."""
     return BertConfig(vocab_size=vocab, dim=64, n_layers=2, n_heads=4,
-                      hidden_dim=128, max_seq_len=128, dtype=torch.float32)
+                      hidden_dim=128, max_seq_len=128, dtype=torch.float32,
+                      remat=False)
 
 
 class Dense(nn.Linear):
@@ -178,7 +182,10 @@ class Bert(nn.Module):
         x = self.tok_embedding[tokens] + self.pos_embedding[None, :T]
         x = self.embed_norm(x.to(c.dtype))
         for layer in self.layers:
-            x = layer(x, attn_mask)
+            if c.remat and torch.is_grad_enabled():
+                x = _remat(layer, c.remat_policy)(x, attn_mask)
+            else:
+                x = layer(x, attn_mask)
         x = F.gelu(self.mlm_transform(x), approximate="tanh")
         x = self.mlm_norm(x)
         return torch.einsum("btd,vd->btv", x.float(), self.tok_embedding)

@@ -2,8 +2,15 @@
 
 Counterpart of ``horovod_tpu/models/llama.py``: bf16 compute with f32
 parameters, GQA attention with RoPE and a causal mask, a SwiGLU MLP, RMSNorm,
-and an untied LM head. Data parallelism lives outside the model
-(``DistributedOptimizer``), so there are no sharding annotations here.
+and an LM head, untied or tied to the embedding. Data parallelism lives
+outside the model (``DistributedOptimizer``), so there are no sharding
+annotations here. Context parallelism (``attention_impl`` "ring" or
+"ulysses") engages when the ambient mesh (``parallel.set_mesh``) has an
+``sp`` axis of size > 1: each rank then holds one shard of the sequence.
+
+Remat (``remat``, ``remat_policy``) runs each block under
+``torch.utils.checkpoint`` with a selective-checkpoint policy per JAX
+policy (:data:`_REMAT_POLICIES`).
 
 Layers are ``nn.Module`` s kept in a ``ModuleList`` (``blocks.{i}``); both
 flax checkpoint layouts (unrolled ``block_i`` and scanned ``layers/block``)
@@ -28,13 +35,18 @@ Places where a port of the JAX model goes wrong, kept as it computes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import context_api as _ctx
+from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import axis_size, get_mesh
 from ._flash import resolve_flash
 
 
@@ -50,9 +62,40 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "dots": save matmul outputs, recompute elementwise. "full": save
+    # nothing inside the block. "dots_attn" and "attn" also save B1's
+    # outputs (_REMAT_POLICIES).
+    remat_policy: str = "dots"
+    # torch has no scan over layers: the blocks always run as a Python
+    # loop. The field keeps JAX's meaning for the checkpoint layout only:
+    # convert.py reads and writes the scanned flax layout (params stacked
+    # [L, ...] under "layers") when resolve_scan_layers says so, else the
+    # unrolled one (block_0 .. block_{L-1}).
+    scan_layers: Any = "auto"
+    tie_embeddings: bool = False
     # None = auto: the flash kernels on CUDA for long sequences, the
     # materialised softmax elsewhere (models/_flash.py).
     use_flash: Optional[bool] = None
+    # Context parallelism for the attention itself. None: dense attention
+    # (on an sp mesh the port raises, where XLA would gather K/V; ROADMAP.md
+    # section C). "ring": K/V rotate round the sp axis (parallel/ring.py).
+    # "ulysses": head-scatter all-to-all (parallel/ulysses.py; needs
+    # n_heads % sp == 0). Both engage only when the ambient mesh has an
+    # "sp" axis of size > 1.
+    attention_impl: Optional[str] = None
+
+
+#: ``scan_layers="auto"`` means the scanned layout above this layer count,
+#: as in the JAX package.
+SCAN_LAYERS_AUTO_THRESHOLD = 8
+
+
+def resolve_scan_layers(c: "LlamaConfig") -> bool:
+    """The effective scan-vs-unroll choice for ``c`` (handles "auto")."""
+    if c.scan_layers == "auto":
+        return c.n_layers > SCAN_LAYERS_AUTO_THRESHOLD
+    return bool(c.scan_layers)
 
 
 def llama3_8b() -> LlamaConfig:
@@ -63,7 +106,73 @@ def llama_tiny(vocab: int = 256) -> LlamaConfig:
     """CPU test configuration (the JAX package's, in f32)."""
     return LlamaConfig(vocab_size=vocab, dim=64, n_layers=2, n_heads=4,
                        n_kv_heads=2, hidden_dim=128, max_seq_len=128,
-                       dtype=torch.float32)
+                       dtype=torch.float32, remat=False, scan_layers=False)
+
+
+@torch.library.custom_op("hvd::attn_context", mutates_args=())
+def attn_context(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The materialised attention's context ``einsum("bhqk,bkhd->bqhd")``
+    as an op of its own, so a remat policy can save it by name, as JAX tags
+    it ``attn_out`` (``models/llama.py:279-286``)."""
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _attn_context_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _attn_context_backward(ctx, g):
+    p, v = ctx.saved_tensors
+    return (torch.einsum("bqhd,bkhd->bhqk", g, v),
+            torch.einsum("bhqk,bqhd->bkhd", p, g))
+
+
+attn_context.register_autograd(_attn_context_backward,
+                               setup_context=_attn_context_setup)
+
+
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+#: The names JAX's policies save: B1's three outputs (``attn_out``,
+#: ``attn_lse_m``, ``attn_lse_l``, ops/flash_attention.py::_fa_fwd_impl)
+#: and the materialised branch's context output (``attn_out``).
+_ATTN = [torch.ops.hvd.fa_fwd.default, torch.ops.hvd.attn_context.default]
+
+#: The ops each remat policy saves inside a block; the rest is recomputed.
+#: "dots" is ``dots_with_no_batch_dims_saveable``: the outputs of products
+#: without batch dims (``mm``, ``addmm``: every dense layer), not the
+#: attention's batched products or anything elementwise. "full" (None)
+#: saves nothing inside the block.
+_REMAT_POLICIES = {
+    "full": None,
+    "dots": _DOTS,
+    "dots_attn": _DOTS + _ATTN,
+    "attn": _ATTN,
+}
+
+
+def _remat(fn, policy_name: str):
+    """``fn`` run under ``torch.utils.checkpoint`` (non-reentrant) with the
+    selective-checkpoint policy ``policy_name`` (``nn.remat`` with a
+    ``jax.checkpoint_policies`` policy)."""
+    if policy_name not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy_name!r} not in "
+                         f"{sorted(_REMAT_POLICIES)}")
+    saved = _REMAT_POLICIES[policy_name]
+    kw = {} if saved is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, saved)}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def with_remat_policy(c: "LlamaConfig", policy: str) -> "LlamaConfig":
+    """``c`` with its remat arm set by one name. ``"none"`` disables remat
+    (every residual kept); any ``_REMAT_POLICIES`` key enables remat under
+    that policy."""
+    if policy == "none":
+        return dataclasses.replace(c, remat=False)
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} not in "
+                         f"{['none'] + sorted(_REMAT_POLICIES)}")
+    return dataclasses.replace(c, remat=True, remat_policy=policy)
 
 
 def _default_device(device) -> torch.device:
@@ -133,18 +242,23 @@ class _HeadProduct(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(wc.dtype).float(), None
 
 
+def head_logits(x, w, dtype):
+    """f32 logits ``x @ w^T`` for the f32 head weight ``w [V, D]`` (the
+    untied head's, or with ``tie_embeddings`` the embedding table): the
+    compute-dtype product accumulated in f32 (:class:`_HeadProduct`); in
+    an f32 configuration a plain f32 product."""
+    if dtype == torch.float32:
+        return F.linear(x.float(), w)
+    lead = x.shape[:-1]
+    x2d = x.to(dtype).reshape(-1, x.shape[-1])
+    return _HeadProduct.apply(x2d, w, dtype).view(*lead, -1)
+
+
 class LMHead(Dense):
-    """The untied LM head: f32 logits from the compute-dtype product
-    accumulated in f32 (:class:`_HeadProduct`); in an f32 configuration a
-    plain f32 product."""
+    """The untied LM head (:func:`head_logits` over its own weight)."""
 
     def forward(self, x):
-        if self.compute_dtype == torch.float32:
-            return super().forward(x).float()
-        lead = x.shape[:-1]
-        x2d = x.to(self.compute_dtype).reshape(-1, x.shape[-1])
-        return _HeadProduct.apply(x2d, self.weight, self.compute_dtype) \
-            .view(*lead, -1)
+        return head_logits(x, self.weight, self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -159,6 +273,30 @@ class RMSNorm(nn.Module):
         norm = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
                                  + self.eps)
         return (norm * self.scale).to(self.dtype)
+
+
+def _seq_parallel_attention(q, k, v, impl: Optional[str], scale: float):
+    """Context-parallel attention over the ambient mesh's ``sp`` axis, or
+    None where the caller's dense path applies: no ``attention_impl``, or
+    no ``sp`` axis of size > 1. ``impl`` is checked on every mesh, so a
+    typo raises on a dev box too, as in JAX."""
+    if impl is not None and impl not in ("ring", "ulysses"):
+        raise ValueError(f"attention_impl {impl!r}: use None, 'ring' or "
+                         "'ulysses'")
+    mesh = get_mesh()
+    if mesh is None or axis_size(mesh, "sp") == 1:
+        return None
+    if impl is None:
+        # GSPMD would gather K/V over sp here; the port does not (ROADMAP.md
+        # section C).
+        raise ValueError("an sp mesh needs attention_impl 'ring' or "
+                         "'ulysses': dense attention would see only this "
+                         "rank's shard of the sequence")
+    from ..parallel import ring_attention, ulysses_attention
+    sp = mesh.axis("sp")
+    if impl == "ring":
+        return ring_attention(q, k, v, sp, causal=True, scale=scale)
+    return ulysses_attention(q, k, v, sp, causal=True, scale=scale)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -199,16 +337,16 @@ class Attention(nn.Module):
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
         scale = 1.0 / hd ** 0.5
-        if resolve_flash(c.use_flash, T, x.device):
-            from ..ops.flash_attention import flash_attention
+        o = _seq_parallel_attention(q, k, v, c.attention_impl, scale)
+        if o is None and resolve_flash(c.use_flash, T, x.device):
             o = flash_attention(q, k, v, causal=True, scale=scale)
-        else:
+        elif o is None:
             s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
             mask = torch.ones((T, T), dtype=torch.bool,
                               device=x.device).tril()
             s = torch.where(mask, s, -1e30)
             p = torch.softmax(s, dim=-1).to(c.dtype)
-            o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+            o = attn_context(p, v)
         return self.wo(o.reshape(B, T, c.n_heads * hd))
 
 
@@ -250,7 +388,8 @@ class Llama(nn.Module):
         self.blocks = nn.ModuleList(Block(c, device)
                                     for _ in range(c.n_layers))
         self.final_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
-        self.lm_head = LMHead(c.dim, c.vocab_size, c.dtype, device)
+        self.lm_head = (None if c.tie_embeddings else
+                        LMHead(c.dim, c.vocab_size, c.dtype, device))
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
             self.embedding.normal_(0.0, 0.02, generator=gen)
@@ -259,10 +398,23 @@ class Llama(nn.Module):
                     _lecun_normal_(mod.weight, gen)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``tokens`` ``[B, T]`` → f32 logits ``[B, T, V]``."""
+        """``tokens`` ``[B, T]`` → f32 logits ``[B, T, V]``. Under an
+        ambient mesh with an ``sp`` axis, ``tokens`` is this rank's shard of
+        the sequence, and its positions start at the shard's offset (the
+        GSPMD model sees the global positions)."""
         c = self.cfg
         x = self.embedding[tokens].to(c.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        T = tokens.shape[1]
+        mesh = get_mesh()
+        start = mesh.axis("sp").index * T if mesh is not None \
+            and "sp" in mesh.shape else 0
+        positions = torch.arange(start, start + T, device=tokens.device)[None]
         for block in self.blocks:
-            x = block(x, positions)
-        return self.lm_head(self.final_norm(x))
+            if c.remat and torch.is_grad_enabled():
+                x = _remat(block, c.remat_policy)(x, positions)
+            else:
+                x = block(x, positions)
+        x = self.final_norm(x)
+        if c.tie_embeddings:
+            return head_logits(x, self.embedding, c.dtype)
+        return self.lm_head(x)

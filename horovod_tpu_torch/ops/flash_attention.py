@@ -17,7 +17,9 @@ launches:
 Beside each kernel is its plain PyTorch version (:func:`_reference_partial`,
 :func:`_plain_bwd_dq`, :func:`_plain_bwd_dkv`). A wrapper takes the plain
 version only for tensors on the CPU, which is how the CPU tests run this
-module; for a CUDA tensor it launches the kernel or raises.
+module; for a CUDA tensor it launches the kernel or raises. B1 runs as the
+torch custom op ``hvd::fa_fwd`` (CUDA implementation: the kernel; CPU
+implementation: the plain version), so a remat policy can name it.
 
 The kernels keep the model's ``[B, T, H, D]`` layout (no fold to ``[B*H, T,
 D]``) and mask the ragged sequence edge themselves, so nothing is padded or
@@ -187,12 +189,42 @@ def fa_fwd(q, k, v, bias=None, *, causal: bool, scale: float):
     score fragment in registers; P enters P V as a bf16 hi + lo pair, which
     keeps it to about 16 bits. f32 keeps the CUDA-core kernel
     (``fa_fwd_kernel``). See the sources' notes.
+
+    The work goes through the torch custom op ``hvd::fa_fwd``, so the
+    dispatcher sees it: a selective-checkpoint policy can save its three
+    outputs by name, as the JAX package's policies save ``attn_out``,
+    ``attn_lse_m`` and ``attn_lse_l`` (``models/llama.py::_REMAT_POLICIES``).
+    Its CUDA implementation launches the kernel; its CPU implementation is
+    the plain version. ``fa_fwd.calls`` counts the op's runs on either
+    device (a saved output replayed in a recompute does not run it);
+    ``fa_fwd.launches`` counts the kernel's launches.
     """
-    if q.device.type == "cpu":
-        return _reference_partial(q, k, v, bias, causal=causal, scale=scale)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check(q, k, v, bias)
+    if q.device.type != "cpu":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        _check(q, k, v, bias)
+    return torch.ops.hvd.fa_fwd(q, k, v, bias, causal, float(scale))
+
+
+fa_fwd.launches = 0
+fa_fwd.calls = 0
+
+
+@torch.library.custom_op("hvd::fa_fwd", mutates_args=())
+def _fa_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: Optional[torch.Tensor], causal: bool,
+               scale: float) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """B1 on the CPU: its plain version."""
+    fa_fwd.calls += 1
+    return _reference_partial(q, k, v, bias, causal=causal, scale=scale)
+
+
+@_fa_fwd_op.register_kernel("cuda")
+def _fa_fwd_cuda(q, k, v, bias, causal, scale):
+    """B1 on the card: the kernel, on the current stream. The operands were
+    checked by :func:`fa_fwd`."""
     from . import _build
+    fa_fwd.calls += 1
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     o = torch.empty_like(q)
@@ -205,9 +237,6 @@ def fa_fwd(q, k, v, bias=None, *, causal: bool, scale: float):
     _raise_on(rc, "fa_fwd")
     fa_fwd.launches += 1
     return o, m, l
-
-
-fa_fwd.launches = 0
 
 
 def fa_bwd_dq(q, k, v, do, m, l, dsum, bias=None, *, causal: bool,
@@ -288,6 +317,7 @@ KERNELS = {"fa_fwd": fa_fwd, "fa_bwd_dq": fa_bwd_dq,
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    fa_fwd.calls = 0
 
 
 # ------------------------------------------------------------ autograd

@@ -22,6 +22,8 @@
 - B1, B2 and B3 at BERT-Large's attention shape (8 x 512 tokens, 16 heads
   of 64, not causal, a ragged key-padding bias), in bf16 and f32.
 - The bf16 LM head's cuBLAS products against its CPU version.
+- B1 as the custom op ``hvd::fa_fwd`` launches the kernel for CUDA tensors;
+  a bf16 Llama under each remat arm against remat off (``-k remat``).
 - ResNetTiny and a bottleneck ResNet with the space_to_depth stem, f32 with
   TF32 off, channels_last on the card against the plain layout on the CPU:
   logits, gradients and running statistics (``-k layout``).
@@ -307,6 +309,66 @@ def test_bf16_lm_head_on_the_card_matches_the_cpu(cuda):
         assert ratio <= 1.0, f"{what}: worst err/tol {ratio:.3f}"
 
 
+def test_b1_custom_op_launches_the_kernel_on_the_card(cuda):
+    """B1 is the torch custom op ``hvd::fa_fwd``: for CUDA tensors the op
+    launches the kernel (its launch counter moves, once per call), not the
+    plain version, and agrees with the plain version within the bf16
+    tolerance; the CPU implementation launches nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((1, 256, 4, 128), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    kw = dict(causal=True, scale=128 ** -0.5)
+    fa.reset_launch_counts()
+    o, m, l = torch.ops.hvd.fa_fwd(q, k, v, None, True, 128 ** -0.5)
+    o2, _ = fa.flash_attention(q, k, v, return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fa_fwd.launches, fa.fa_fwd.calls) == (2, 2)
+    ro, rm, rl = fa._reference_partial(q, k, v, **kw)
+    _close("o", o, ro)
+    _close("m", m, rm)
+    _close("l", l, rl)
+    assert torch.equal(o, o2)
+    torch.ops.hvd.fa_fwd(q.cpu(), k.cpu(), v.cpu(), None, True, 0.1)
+    assert (fa.fa_fwd.launches, fa.fa_fwd.calls) == (2, 3)
+
+
+@pytest.mark.parametrize("arm", ["dots", "dots_attn", "attn", "full"])
+def test_remat_arms_match_remat_off_on_the_card(cuda, arm):
+    """A bf16 Llama (head dim 128, T = 512, flash on) under each remat arm
+    against remat off on the card: loss and every gradient per element
+    within 2^-7 (|ref| + RMS(ref)), one bf16 ulp, as the recompute may
+    repeat a product in another order (the embedding's scatter-add is not
+    ordered); B1 launched twice a layer under "dots" and "full", once
+    under the others, and B2, B3 once a layer."""
+    from horovod_tpu_torch.models import llama as tllama
+    from horovod_tpu_torch.train import next_token_loss
+    base = tllama.LlamaConfig(vocab_size=1000, dim=512, n_layers=2,
+                              n_heads=4, n_kv_heads=2, hidden_dim=1024,
+                              max_seq_len=512, use_flash=True)
+    tokens = torch.randint(0, 1000, (2, 512), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(0))
+    out = {}
+    for name in ("none", arm):
+        model = tllama.Llama(tllama.with_remat_policy(base, name),
+                             device="cuda", seed=0)
+        fa.reset_launch_counts()
+        loss = next_token_loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()},
+                     {k: f.launches for k, f in fa.KERNELS.items()})
+    b1 = 4 if arm in ("dots", "full") else 2
+    assert out[arm][2] == {"fa_fwd": b1, "fa_bwd_dq": 2, "fa_bwd_dkv": 2}
+    assert out["none"][2] == {"fa_fwd": 2, "fa_bwd_dq": 2, "fa_bwd_dkv": 2}
+    for name, g in [("loss", out["none"][0]), *out["none"][1].items()]:
+        got = out[arm][0] if name == "loss" else out[arm][1][name]
+        tol = 2 ** -7 * (g.abs() + g.square().mean().sqrt())
+        ratio = ((got - g).abs() / tol).max().item()
+        assert ratio <= 1.0, f"{name}: worst err/tol {ratio:.3f}"
+
+
 @pytest.mark.parametrize("name", ["tiny", "bottleneck-s2d"])
 def test_resnet_layout_on_the_card_matches_the_cpu(cuda, name):
     """The ResNet runs channels_last on the card and in the plain layout on
@@ -371,7 +433,7 @@ _WORKER = textwrap.dedent("""
     rank, size = hvd.rank(), hvd.size()
     cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
                       n_kv_heads=2, hidden_dim=512, max_seq_len=128,
-                      dtype=torch.float32, use_flash=True)
+                      dtype=torch.float32, use_flash=True, remat=False)
     model = Llama(cfg, seed=rank)  # ranks differ until the broadcast
     if opt_name == "sgd":
         inner = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
@@ -500,7 +562,7 @@ _COLLECTIVES_WORKER = textwrap.dedent("""
     # The hook path: the buckets' stages chained on the side stream.
     cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
                       n_kv_heads=2, hidden_dim=512, max_seq_len=128,
-                      dtype=torch.float32, use_flash=True)
+                      dtype=torch.float32, use_flash=True, remat=False)
     model = Llama(cfg, seed=0)
     params = list(model.parameters())
     opt = hvd.DistributedOptimizer(
