@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
-and of its Adasum, hierarchical, collective and context-parallel paths
-across up to four cards where the machine has them.
+and of its Adasum, hierarchical, collective, context-parallel and
+expert-parallel paths across up to four cards where the machine has them.
 
     python3 chip_smoke.py
 
@@ -157,6 +157,42 @@ Phases, one line each; any failure raises and the script exits nonzero:
    at the tolerances below, each timed beside its bound, its plain version
    and ``F.scaled_dot_product_attention``.
 
+15. mixtral-ep — expert-parallel Mixtral training; it runs right after
+   phase 13, before this process allocates anything on the cards, and
+   needs two ranks: on one card it prints that and runs nothing. With 2 or
+   more cards it starts an NCCL world of 2 (``{"ep": 2}``) and on 4 cards
+   one of 4 too (``{"ep": 4}``, ``{"dp": 2, "ep": 2}``). The model is
+   ``mixtral_8x7b()`` cut to 2 layers (vocab 32000, dim 4096, 32 / 8 heads
+   of 128, hidden 14336, 8 experts top-2, rope theta 1e6), remat "dots",
+   each rank with its own 2 x 2048 tokens, AdamW(1e-4) through
+   ``make_gspmd_train_step(aux_weight=0.02)`` with the groups of
+   ``mesh_param_groups``, 4 steps, the last profiled on the last rank.
+   Each rank first runs the whole model (all 8 experts, no mesh, from the
+   same seed) on every rank's shard in turn and averages the losses and
+   gradients: the reference. Requires B1/B2/B3 launched 4/2/2 a step (B1's
+   forward and its recompute), finite losses, dense parameters
+   bit-identical on every rank and each expert slice across its replica
+   set (the ranks with its ep index), the first loss within 1e-3 relative
+   of the reference, and each rank's first reduced gradients (dense, and
+   its own experts') within 2^-4 normwise of the reference's: both compute
+   in bf16, and the batched expert products change shape with ep. Prints
+   the step time, tokens/s/GPU, peak memory, the all-to-alls a step and
+   their bytes, and the profiled step's device time.
+16. mixtral — the same model on one card, an NCCL world of one: block 0's
+   routing, dispatch, experts and combine at the main path's shapes with
+   two backward passes, whose plan and dispatch and combine gradients must
+   be bit-identical; then 4 steps of exact AdamW(1e-4) with aux weight
+   0.02 (the last profiled): finite, falling losses and B1/B2/B3 4/2/2 a
+   step; then, from the same weights, 8 steps of ``deferred_pair(1e-4,
+   every=4)`` through ``make_gspmd_deferred_train_step``: on each skip
+   step no expert bank has a ``.grad``, and the banks and their moments
+   are bit-identical across each window's skip steps (held against a
+   host copy); each apply step changes them. Prints tokens/s/GPU, the
+   step time (skip and apply apart), peak memory, the entries each expert
+   kept and the dropped share, and the device time by kernel group and by
+   op of the MoE layers alone (the expert ``bmm`` s, routing and gathers,
+   the exchange: ``moe_op_events``).
+
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are those of
 its main path alone: phase 7's run for B1-B3, phase 3's for B4 and B5 (0 on
@@ -164,8 +200,9 @@ one card). ``launches_by_path`` gives each path's own count beside it, each
 read from a run whose counts were set to 0 just before it: ``train`` (phase
 7), ``bert`` (phase 10), ``adasum`` (phase 3), ``collectives`` (phase 4,
 its three checked steps for B1-B3 and its ``hierarchical_adasum`` call for
-B4 and B5), ``longctx`` (phase 14, every arm's steps) and ``context``
-(phase 13, rank 0's checked steps).
+B4 and B5), ``longctx`` (phase 14, every arm's steps), ``context``
+(phase 13, rank 0's checked steps), ``mixtral`` (phase 16, its exact-AdamW
+steps) and ``mixtral-ep`` (phase 15, rank 0's steps).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -1842,6 +1879,455 @@ def crossover_phase(torch, card):
                      f"{card}")
 
 
+#: The ``mixtral`` and ``mixtral-ep`` phases: Mixtral-8x7B's widths cut to
+#: 2 layers, remat "dots" (the config's default), 2 x 2048 tokens a rank,
+#: the router aux loss at the bench's weight.
+MIXTRAL_B, MIXTRAL_T = 2, 2048
+MIXTRAL_AUX = 0.02
+#: B1, B2 and B3 launches a step of the 2-layer model under remat "dots":
+#: B1's forward and its recompute, B2 and B3 once a layer.
+MIXTRAL_LAUNCHES = {"fa_fwd": 4, "fa_bwd_dq": 2, "fa_bwd_dkv": 2}
+#: Gates of the ``mixtral-ep`` phase against the whole model on each shard.
+EP_LOSS_RTOL = 1e-3
+EP_GRAD_NORMWISE = 2 ** -4
+#: The MoE's own device time, by the CPU op that launched the kernels.
+MOE_OPS = (("expert bmm", ("aten::bmm",)),
+           ("routing and gathers", ("aten::sort", "aten::bincount",
+                                    "aten::index", "aten::index_select",
+                                    "aten::scatter_", "aten::cumsum",
+                                    "aten::gather", "aten::one_hot",
+                                    "aten::_softmax")),
+           ("expert all-to-all", ("hvd::expert_alltoall",)))
+#: The profiler range of ``MoEMLP.forward``.
+MOE_SCOPE = "hvd::moe"
+
+
+def moe_op_events(prof, groups=MOE_OPS):
+    """The events of ``prof`` that run a named op of ``groups`` inside the
+    MoE layers, with their group: under a ``MOE_SCOPE`` range (the forward
+    and its recompute) or in the backward of an autograd node that an op
+    in such a range made. An event belongs to the nearest of its ancestors
+    that decides: a ``MOE_SCOPE`` range, a backward node (matched to its
+    forward op by thread and sequence number), or an op that made a node
+    outside the MoE (the embedding lookup, the loss's target gather, the
+    attention a backward node recomputes). An op inside another named op
+    counts once."""
+    names = {n: g for g, ns in groups for n in ns}
+    events = prof.events()
+
+    def ancestors(e):
+        p = e.cpu_parent
+        while p is not None:
+            yield p
+            p = p.cpu_parent
+
+    def key(e):  # a backward event carries its forward op's thread
+        return (e.fwd_thread or e.thread, e.sequence_nr)
+
+    moe = {key(e) for e in events if e.sequence_nr >= 0
+           and any(a.name == MOE_SCOPE for a in ancestors(e))}
+
+    def in_moe(e):
+        for a in ancestors(e):
+            if a.name == MOE_SCOPE:
+                return True
+            if (a.name.startswith("autograd::engine::evaluate_function")
+                    or a.sequence_nr >= 0 and key(a) not in moe):
+                return key(a) in moe
+        return False
+
+    return [(names[e.name], e) for e in events if e.name in names
+            and not any(a.name in names for a in ancestors(e))
+            and in_moe(e)]
+
+
+def op_device_ms(prof, groups=MOE_OPS):
+    """Device time of the kernels launched under the MoE's named CPU ops
+    (and their children), by group (:func:`moe_op_events`)."""
+    ms = dict.fromkeys([g for g, _ in groups], 0.0)
+    for g, e in moe_op_events(prof, groups):
+        ms[g] += e.device_time_total / 1e3
+    return "; ".join(f"{g} {t:.2f} ms" for g, t in ms.items())
+
+
+def mixtral_model(torch, mesh=None):
+    """The phases' model and a seeded batch maker."""
+    from horovod_tpu_torch.models import mixtral
+    cfg = dataclasses.replace(mixtral.mixtral_8x7b(), n_layers=2,
+                              use_flash=True)
+    return cfg, mixtral.Mixtral(cfg, seed=0, mesh=mesh)
+
+
+def mixtral_tokens(torch, cfg, rows, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (rows, MIXTRAL_T), generator=gen,
+                         device="cuda")
+
+
+def moe_backward_twice(torch, model, tokens):
+    """Block 0's MoE at the main path's shapes: its input from a forward of
+    ``tokens``, then the router, dispatch, experts and combine, and the
+    backward of a seeded cotangent, twice. Returns whether the routing plan
+    and the gradients through the dispatch and the combine (the tokens', the
+    expert buffers', the expert outputs' and the combine weights') came out
+    bit-identical."""
+    from horovod_tpu_torch.parallel import moe as pmoe
+    moe = model.blocks[0].moe
+    seen = {}
+    hook = moe.register_forward_hook(
+        lambda m, args, out: seen.setdefault("x", args[0].detach()))
+    with torch.no_grad():
+        model(tokens)
+    hook.remove()
+    x, c = seen["x"], moe.c
+    B, T, D = x.shape
+    C = max(1, int(c.capacity_factor * c.top_k * B * T / c.n_experts))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cot = torch.randn(B * T, D, generator=gen, device="cuda")
+    runs = []
+    for _ in range(2):
+        tok = x.reshape(B * T, D).clone().requires_grad_()
+        r = pmoe.topk_router_sorted(moe.router(tok), c.n_experts, C, c.top_k)
+        buf = pmoe.sorted_dispatch(tok, r, c.n_experts, C)
+        out = moe.experts(buf)
+        y = pmoe.sorted_combine(out, r, B * T)
+        grads = torch.autograd.grad((y.float() * cot).sum(),
+                                    [tok, buf, out, r.weight])
+        runs.append([r.dest, r.slot_entry, *grads])
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def expert_tensors(model, opt):
+    """Every expert bank tensor and its optimizer state tensors."""
+    import torch
+    from horovod_tpu_torch.optimizer import is_expert_param
+    out = []
+    for name, p in model.named_parameters():
+        if is_expert_param(name):
+            out.append((name, p))
+            out += [(f"{name}/{k}", v) for k, v in sorted(opt.state[p].items())
+                    if torch.is_tensor(v)]
+    return out
+
+
+def mixtral_phase(torch, card):
+    """The ``mixtral`` phase (module doc). Returns the launches of B1-B3
+    over its exact-AdamW steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.mixtral import router_load
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optimizer import deferred_pair, is_expert_param
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.train import (create_gspmd_train_state,
+                                         make_gspmd_deferred_train_step,
+                                         make_gspmd_train_step,
+                                         mesh_param_groups)
+    hvd.init()
+    mesh = create_mesh({"dp": 1})
+    cfg, model = mixtral_model(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = mixtral_tokens(torch, cfg, MIXTRAL_B)
+    if not moe_backward_twice(torch, model, tokens):
+        raise AssertionError("two backward passes of the dispatch and "
+                             "combine differ")
+    model.zero_grad(set_to_none=True)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(mesh_param_groups(model, mesh), lr=1e-4,
+                          weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    state = create_gspmd_train_state(model, opt, mesh)
+    step = make_gspmd_train_step(model, opt, mesh, aux_weight=MIXTRAL_AUX)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, launches = [], [], []
+    for i in range(4):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if i == 3 else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, tokens)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t)
+        launches.append({k: f.launches for k, f in fa.KERNELS.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kept, dropped = router_load(model)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mixtral: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mixtral: loss did not fall: {losses}")
+    if launches != [MIXTRAL_LAUNCHES] * 4:
+        raise AssertionError(f"mixtral: B1-B3 launches per step {launches},"
+                             f" expected {MIXTRAL_LAUNCHES}")
+    timed = sorted(times[1:-1])
+    step_s = timed[len(timed) // 2]
+    entries = cfg.top_k * MIXTRAL_B * MIXTRAL_T
+    log("mixtral", f"mixtral_8x7b width, 2 layers ({n_params:,} "
+                   f"parameters), 1 rank over NCCL, {MIXTRAL_B} x "
+                   f"{MIXTRAL_T} tokens, remat dots, exact AdamW(1e-4), "
+                   f"aux weight {MIXTRAL_AUX}: losses {losses}; step "
+                   f"{step_s * 1e3:.1f} ms (first {times[0] * 1e3:.1f} ms)"
+                   f"; {MIXTRAL_B * MIXTRAL_T / step_s:.0f} tokens/s/GPU; "
+                   f"B1-B3 per step {launches[0]}; (token, choice) "
+                   f"entries kept per expert over both layers {kept}, "
+                   f"dropped {dropped} of {entries * cfg.n_layers} "
+                   f"({dropped / (entries * cfg.n_layers):.2%}); dispatch "
+                   f"and combine backward bit-identical twice; peak "
+                   f"{peak:.1f} GB; on {card}")
+    log("mixtral", f"step 4 under torch.profiler, {times[-1] * 1e3:.1f} ms "
+                   f"on the host clock: "
+                   f"{device_breakdown(prof, times[-1], MODEL_GROUPS)}")
+    log("mixtral", f"step 4 by op: {op_device_ms(prof)}")
+    total = {k: sum(x[k] for x in launches) for k in MIXTRAL_LAUNCHES}
+    del state, step, opt, model, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The deferred pair from the same weights: 3 skip steps, 1 apply, twice.
+    cfg, model = mixtral_model(torch)
+    pair = deferred_pair(1e-4, every=4)
+    state = create_gspmd_train_state(model, pair.apply, mesh)
+    step = make_gspmd_deferred_train_step(model, pair, mesh,
+                                          aux_weight=MIXTRAL_AUX)
+    opt = state.optimizer
+    torch.cuda.reset_peak_memory_stats()
+    dlosses, dtimes, snap = [], [], None
+    for i in range(2 * pair.every):
+        skip = (i + 1) % pair.every != 0
+        if i % pair.every == 0:
+            snap = [(n, t.detach().to("cpu", copy=True))
+                    for n, t in expert_tensors(model, opt)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = step(state, tokens)
+        dlosses.append(loss.item())
+        dtimes.append(time.perf_counter() - t)
+        experts = [p for n, p in model.named_parameters()
+                   if is_expert_param(n)]
+        if skip and any(p.grad is not None for p in experts):
+            raise AssertionError(f"deferred step {i + 1}: an expert bank "
+                                 "has a gradient on a skip step")
+        if i % pair.every == pair.every - 2:
+            now = expert_tensors(model, opt)
+            if [n for n, _ in now] != [n for n, _ in snap] or not all(
+                    torch.equal(a.to("cpu"), b)
+                    for (_, a), (_, b) in zip(now, snap)):
+                raise AssertionError(f"deferred steps {i - 1}-{i + 1}: the "
+                                     "expert bank or its moments changed "
+                                     "on a skip step")
+        if not skip and torch.equal(experts[0].to("cpu"), snap[0][1]):
+            raise AssertionError(f"deferred step {i + 1}: the apply step "
+                                 "left the expert bank unchanged")
+    del snap
+    dpeak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in dlosses):
+        raise AssertionError(f"mixtral deferred: non-finite loss {dlosses}")
+    skips = sorted(t for i, t in enumerate(dtimes)
+                   if (i + 1) % pair.every and i > 0)
+    applies = [t for i, t in enumerate(dtimes) if (i + 1) % pair.every == 0]
+    log("mixtral", f"deferred_pair(1e-4, every={pair.every}) from the same "
+                   f"weights: losses {dlosses}; skip step "
+                   f"{skips[len(skips) // 2] * 1e3:.1f} ms (median of "
+                   f"{len(skips)}), apply steps "
+                   f"{[round(t * 1e3, 1) for t in applies]} ms; expert "
+                   f"banks without a gradient and, with their moments, "
+                   f"bit-identical across each window's skip steps; peak "
+                   f"{dpeak:.1f} GB; on {card}")
+    hvd.shutdown()
+    del state, step, opt, model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def mixtral_ep_worker(out_dir):
+    """One rank of the ``mixtral-ep`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optimizer import is_expert_param
+    from horovod_tpu_torch.parallel import axis_size, create_mesh
+    from horovod_tpu_torch.parallel import moe as pmoe
+    from horovod_tpu_torch.train import (create_gspmd_train_state,
+                                         make_gspmd_train_step,
+                                         mesh_param_groups, next_token_loss,
+                                         shard_tokens)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    layouts = [{"ep": n}] + ([{"dp": 2, "ep": n // 2}] if n >= 4 else [])
+    runs = []
+    for axes in layouts:
+        mesh = create_mesh(axes)
+        ep, e = axis_size(mesh, "ep"), mesh.axis("ep").index
+        # The reference: the whole model (every expert, no mesh) on each
+        # rank's shard in turn, losses and gradients averaged. Every rank
+        # runs it, and keeps the dense gradients and its own experts'.
+        cfg, whole = mixtral_model(torch)
+        tokens = mixtral_tokens(torch, cfg, MIXTRAL_B * n)
+        ref_losses = []
+        for s in range(n):
+            part = tokens[s * MIXTRAL_B:(s + 1) * MIXTRAL_B]
+            loss = next_token_loss(whole(part), part) + MIXTRAL_AUX * \
+                torch.stack(whole.sown_losses["router_aux"]).sum()
+            (loss / n).backward()
+            ref_losses.append(loss.item())
+        lo, hi = e * cfg.n_experts // ep, (e + 1) * cfg.n_experts // ep
+        ref = {name: (p.grad[lo:hi] if is_expert_param(name) else p.grad
+                      ).to("cpu") for name, p in whole.named_parameters()}
+        del whole, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg, model = mixtral_model(torch, mesh)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(mesh_param_groups(model, mesh), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        state = create_gspmd_train_state(model, opt, mesh)
+        step = make_gspmd_train_step(model, opt, mesh,
+                                     aux_weight=MIXTRAL_AUX)
+        shard = shard_tokens(tokens, mesh)
+        res = {"axes": axes, "ep": ep, "ep_index": e,
+               "ref_loss": sum(ref_losses) / n, "n_layers": cfg.n_layers,
+               "a2a_bytes": 0}
+        synchronize = opt.synchronize
+
+        def check_first_step():
+            """The first step's reduced gradients against the reference,
+            before the update."""
+            synchronize()
+            if "grad" not in res:
+                res["grad"] = grad_gaps(torch, model, ref)
+
+        opt.synchronize = check_first_step
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, launches, a2a = [], [], [], []
+        for i in range(4):
+            fa.reset_launch_counts()
+            pmoe.expert_alltoall.launches = 0
+            torch.cuda.synchronize()
+            with (torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                  if i == 3 and rank == n - 1
+                  else contextlib.nullcontext()) as prof:
+                t = time.perf_counter()
+                state, loss = step(state, shard)
+                losses.append(loss.item())
+                times.append(time.perf_counter() - t)
+            launches.append({k: f.launches for k, f in fa.KERNELS.items()})
+            a2a.append(pmoe.expert_alltoall.launches)
+        if rank == n - 1:
+            res["profile"] = device_breakdown(prof, times[-1], MODEL_GROUPS)
+            res["by_op"] = op_device_ms(prof)
+        # an exchange moves this rank's [E, C, D] buffer in the compute dtype
+        c = model.blocks[0].moe.c
+        C = max(1, int(c.capacity_factor * c.top_k * shard.numel()
+                       / c.n_experts))
+        res["a2a_bytes"] = c.n_experts * C * c.dim * 2
+        # replicas: dense parameters equal on every rank, each expert slice
+        # across the ranks that hold it
+        rs = pmoe.expert_replica_set(mesh)
+        differ = 0
+        for name, p in model.named_parameters():
+            buf = p.detach().clone()
+            if is_expert_param(name):
+                ops.broadcast_(buf, rs.ranks[0], process_set=rs)
+            else:
+                dist.broadcast(buf, 0)
+            differ += int(not torch.equal(buf, p))
+        res.update(losses=losses, times=times, launches=launches,
+                   alltoalls=a2a, params_differing=differ,
+                   replica_set=list(rs.ranks),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(res)
+        del (state, step, opt, model, ref, shard, synchronize,
+             check_first_step, buf, prof, tokens)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs}, f)
+    hvd.shutdown()
+    return 0
+
+
+def mixtral_ep_phase(torch, card):
+    """The ``mixtral-ep`` phase (module doc). Returns rank 0's launches of
+    B1-B3 over its steps, or zeros on one card."""
+    zeros = dict.fromkeys(MIXTRAL_LAUNCHES, 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("mixtral-ep", "one card: expert parallelism shards the experts "
+                          "over an ep axis of 2 or more ranks; on one card "
+                          "the phase runs nothing")
+        return zeros
+    total = dict(zeros)
+    for n in [2] + ([4] if cards >= 4 else []):
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+               if n < cards else None)
+        ranks = run_world("mixtral-ep", n, env)
+        for res in ranks:
+            for run in res["runs"]:
+                what = f"{n} ranks, {run['axes']}, rank {res['rank']}"
+                if run["launches"] != [MIXTRAL_LAUNCHES] * 4:
+                    raise AssertionError(f"{what}: B1-B3 launches per step "
+                                         f"{run['launches']}, expected "
+                                         f"{MIXTRAL_LAUNCHES}")
+                if not all(math.isfinite(x) for x in run["losses"]):
+                    raise AssertionError(f"{what}: non-finite loss "
+                                         f"{run['losses']}")
+                if run["params_differing"]:
+                    raise AssertionError(
+                        f"{what}: {run['params_differing']} parameters differ"
+                        " from their replicas'")
+                rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+                if not rel <= EP_LOSS_RTOL:
+                    raise AssertionError(f"{what}: first loss "
+                                         f"{run['losses'][0]} vs the whole "
+                                         f"model's {run['ref_loss']}")
+                if not run["grad"][1] <= EP_GRAD_NORMWISE:
+                    raise AssertionError(f"{what}: gradient off the whole "
+                                         f"model's by {run['grad'][1]:.4f} "
+                                         "normwise")
+        for i, run in enumerate(ranks[0]["runs"]):
+            what = f"{n} ranks, {run['axes']}"
+            timed = sorted(run["times"][1:-1])
+            step_s = timed[len(timed) // 2]
+            worst = max(r["runs"][i]["grad"][1] for r in ranks)
+            rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+            log("mixtral-ep", f"{what} over NCCL, mixtral_8x7b width, 2 "
+                              f"layers, {MIXTRAL_B} x {MIXTRAL_T} tokens a "
+                              f"rank, remat dots, AdamW: losses "
+                              f"{run['losses']}; first vs the whole model "
+                              f"{run['ref_loss']:.6f} (rel {rel:.2e}, gate "
+                              f"{EP_LOSS_RTOL}); step-1 gradients vs the "
+                              f"whole model's, worst rank normwise "
+                              f"{worst:.2e} (gate 2^-4), rank 0 per element "
+                              f"{run['grad'][0]:.3f} of 2^-7 (|ref| + RMS); "
+                              f"step {step_s * 1e3:.1f} ms (first "
+                              f"{run['times'][0] * 1e3:.1f} ms); "
+                              f"{MIXTRAL_B * MIXTRAL_T / step_s:.0f} "
+                              f"tokens/s/GPU; {run['alltoalls'][1]} "
+                              f"all-to-alls a step of "
+                              f"{run['a2a_bytes'] / 1e6:.1f} MB a rank each "
+                              f"({run['alltoalls'][1] * run['a2a_bytes'] / 1e6:.0f}"
+                              f" MB a step); expert replica sets like "
+                              f"{run['replica_set']}; replicas bit-identical"
+                              f"; peak {run['peak_gb']:.1f} GB; on {card}")
+            last = ranks[-1]["runs"][i]
+            log("mixtral-ep", f"{what}, rank {n - 1}, step 4 under "
+                              f"torch.profiler: {last['profile']}")
+            log("mixtral-ep", f"{what}, rank {n - 1}, step 4 by op: "
+                              f"{last['by_op']}")
+            for k in total:
+                total[k] += sum(x[k] for x in run["launches"])
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1876,6 +2362,7 @@ def main():
     adasum_launches = adasum_phase(torch, card)
     collectives_launches = collectives_phase(torch, card)
     context_launches = context_phase(torch, card)
+    ep_launches = mixtral_ep_phase(torch, card)
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -2003,6 +2490,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     longctx_launches = longctx_phase(torch, card, fmt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_launches = mixtral_phase(torch, card)
     errs.update(fused_errs)
     ms.update(fms)
     library.update(flib)
@@ -2010,7 +2500,9 @@ def main():
     by_path = {name: {"train": count, "bert": bert_launches[name],
                       "collectives": collectives_launches[name],
                       "longctx": longctx_launches[name],
-                      "context": context_launches[name]}
+                      "context": context_launches[name],
+                      "mixtral": mixtral_launches[name],
+                      "mixtral-ep": ep_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name]}
@@ -2041,4 +2533,6 @@ if __name__ == "__main__":
         sys.exit(collectives_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--context-worker"]:
         sys.exit(context_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mixtral-ep-worker"]:
+        sys.exit(mixtral_ep_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""Carry Llama, ResNet and BERT parameters between the JAX package and the
-port.
+"""Carry Llama, Mixtral, ResNet and BERT parameters between the JAX package
+and the port.
 
 :func:`llama_params_from_flax` turns a flax parameter tree (numpy or JAX
 leaves) of ``horovod_tpu.models.llama.Llama`` into a ``state_dict`` of
@@ -12,6 +12,9 @@ is transposed on the way across. Both flax layer layouts are read: unrolled
 ``block_i`` subtrees, and scanned ``layers/block`` with ``[L, ...]`` leaves.
 With ``tie_embeddings`` neither side has an LM head: the logits use the
 embedding.
+
+:func:`mixtral_params_from_flax` reads a flax ``Mixtral`` the same way and
+keeps only one ep rank's slice of each expert bank.
 
 The ResNet and BERT pairs (:func:`resnet_params_from_flax`,
 :func:`bert_params_from_flax` and their inverses) do the same for those
@@ -42,29 +45,46 @@ def _np(x) -> np.ndarray:
     return np.array(x, dtype=np.float32)
 
 
-def llama_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (optionally under a ``"params"`` key) → the port's
-    ``state_dict`` (f32 CPU tensors)."""
-    p = params.get("params", params)
+def _flax_blocks(p: Dict, cfg):
+    """The block subtrees of a flax decoder tree, unrolled (``block_i``) or
+    scanned (``layers/block`` with ``[L, ...]`` leaves)."""
     if "layers" in p:
         stacked = p["layers"]["block"]
-        blocks = [_index_tree(stacked, i) for i in range(cfg.n_layers)]
-    else:
-        blocks = [p[f"block_{i}"] for i in range(cfg.n_layers)]
+        return [_index_tree(stacked, i) for i in range(cfg.n_layers)]
+    return [p[f"block_{i}"] for i in range(cfg.n_layers)]
+
+
+def _decoder_from_flax(p: Dict, cfg, mlp) -> Dict[str, np.ndarray]:
+    """The decoder's embedding, final norm, LM head and blocks' norms and
+    attention as the port's names; ``mlp(block, prefix, sd)`` adds each
+    block's MLP."""
     sd = {"embedding": _np(p["embedding"]),
           "final_norm.scale": _np(p["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = _np(p["lm_head"]).T
-    for i, b in enumerate(blocks):
+    for i, b in enumerate(_flax_blocks(p, cfg)):
         pre = f"blocks.{i}."
         sd[pre + "attn_norm.scale"] = _np(b["attn_norm"]["scale"])
         sd[pre + "mlp_norm.scale"] = _np(b["mlp_norm"]["scale"])
         for n in _ATTN:
             sd[pre + f"attn.{n}.weight"] = _np(b["attn"][n]["kernel"]).T
-        for n in _MLP:
-            sd[pre + f"mlp.{n}.weight"] = _np(b["mlp"][n]["kernel"]).T
+        mlp(b, pre, sd)
+    return sd
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in sd.items()}
+
+
+def llama_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (optionally under a ``"params"`` key) → the port's
+    ``state_dict`` (f32 CPU tensors)."""
+    def mlp(b, pre, sd):
+        for n in _MLP:
+            sd[pre + f"mlp.{n}.weight"] = _np(b["mlp"][n]["kernel"]).T
+    return _tensors(_decoder_from_flax(params.get("params", params), cfg,
+                                       mlp))
 
 
 def _index_tree(tree, i):
@@ -73,12 +93,10 @@ def _index_tree(tree, i):
     return _np(tree)[i]
 
 
-def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
-                         scanned: Optional[bool] = None) -> Dict:
-    """The port's ``state_dict`` → a flax parameter tree of numpy arrays,
-    unrolled (``block_i``) or, with ``scanned``, stacked under
-    ``layers/block``. ``scanned=None`` takes the layout the JAX model of
-    ``cfg`` has (``resolve_scan_layers``)."""
+def _decoder_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
+                     scanned: Optional[bool], mlp) -> Dict:
+    """Inverse of :func:`_decoder_from_flax`: ``mlp(sd, prefix)`` gives each
+    block's MLP subtree as ``{name: subtree}``."""
     if scanned is None:
         scanned = resolve_scan_layers(cfg)
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
@@ -90,8 +108,7 @@ def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
             "mlp_norm": {"scale": sd[pre + "mlp_norm.scale"]},
             "attn": {n: {"kernel": sd[pre + f"attn.{n}.weight"].T}
                      for n in _ATTN},
-            "mlp": {n: {"kernel": sd[pre + f"mlp.{n}.weight"].T}
-                    for n in _MLP},
+            **mlp(sd, pre),
         })
     out = {"embedding": sd["embedding"],
            "final_norm": {"scale": sd["final_norm.scale"]}}
@@ -102,6 +119,52 @@ def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
     else:
         out.update({f"block_{i}": b for i, b in enumerate(blocks)})
     return out
+
+
+def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
+                         scanned: Optional[bool] = None) -> Dict:
+    """The port's ``state_dict`` → a flax parameter tree of numpy arrays,
+    unrolled (``block_i``) or, with ``scanned``, stacked under
+    ``layers/block``. ``scanned=None`` takes the layout the JAX model of
+    ``cfg`` has (``resolve_scan_layers``)."""
+    return _decoder_to_flax(
+        state_dict, cfg, scanned,
+        lambda sd, pre: {"mlp": {n: {"kernel": sd[pre + f"mlp.{n}.weight"].T}
+                                 for n in _MLP}})
+
+
+# ----------------------------------------------------------------- Mixtral
+
+def mixtral_params_from_flax(params: Dict, cfg, ep_rank: int = 0,
+                             ep_size: int = 1) -> Dict[str, torch.Tensor]:
+    """A flax ``Mixtral``'s ``params`` → the port's ``state_dict`` for the
+    rank at ep index ``ep_rank`` of ``ep_size``: the router kernel ``[D,
+    E]`` transposed to ``[E, D]``, and of each expert bank (``w1``, ``w3``
+    ``[E, D, M]``, ``w2`` ``[E, M, D]``, the port's layout too) only the
+    experts ``[ep_rank E / ep_size, (ep_rank + 1) E / ep_size)``."""
+    E = cfg.n_experts
+    if E % ep_size:
+        raise ValueError(f"experts {E} not divisible by ep size {ep_size}")
+    lo, hi = ep_rank * E // ep_size, (ep_rank + 1) * E // ep_size
+
+    def moe(b, pre, sd):
+        sd[pre + "moe.router.weight"] = _np(b["moe"]["router"]["kernel"]).T
+        for n in _MLP:
+            sd[pre + f"moe.{n}"] = _np(b["moe"][n])[lo:hi]
+    return _tensors(_decoder_from_flax(params.get("params", params), cfg,
+                                       moe))
+
+
+def mixtral_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
+                           scanned: Optional[bool] = None) -> Dict:
+    """Inverse of :func:`mixtral_params_from_flax`, unrolled or scanned as
+    :func:`llama_params_to_flax`; the expert banks hold the experts the
+    ``state_dict`` holds."""
+    return _decoder_to_flax(
+        state_dict, cfg, scanned,
+        lambda sd, pre: {"moe": {
+            "router": {"kernel": sd[pre + "moe.router.weight"].T},
+            **{n: sd[pre + f"moe.{n}"] for n in _MLP}}})
 
 
 def _stack_trees(trees):
@@ -167,8 +230,7 @@ def resnet_params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             norm(pre + "norm_proj.", b["norm_proj"], bs.get("norm_proj"))
     sd["head.weight"] = _np(p["Dense_0"]["kernel"]).T
     sd["head.bias"] = _np(p["Dense_0"]["bias"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def resnet_params_to_flax(state_dict: Dict[str, torch.Tensor],
@@ -237,8 +299,7 @@ def bert_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
             norm(pre + n + ".", layer[n])
     dense("mlm_transform.", p["mlm_transform"])
     norm("mlm_norm.", p["mlm_norm"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def bert_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> Dict:

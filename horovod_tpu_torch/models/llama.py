@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..core import context_api as _ctx
 from ..ops.flash_attention import flash_attention
+from ..parallel import moe as _moe  # noqa: F401  (hvd::expert_alltoall)
 from ..parallel.mesh import axis_size, get_mesh
 from ._flash import resolve_flash
 
@@ -136,17 +137,23 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 #: ``attn_lse_m``, ``attn_lse_l``, ops/flash_attention.py::_fa_fwd_impl)
 #: and the materialised branch's context output (``attn_out``).
 _ATTN = [torch.ops.hvd.fa_fwd.default, torch.ops.hvd.attn_context.default]
+#: The MoE's expert exchange over ep (``parallel/moe.py``). JAX's policies
+#: do not save an ``all_to_all``, so its recompute exchanges again; the
+#: port's saving policies keep the exchange's output, so a step posts one
+#: all-to-all each way a layer forward and one each way backward. "full"
+#: recomputes it, as JAX does.
+_EXCHANGE = [torch.ops.hvd.expert_alltoall.default]
 
 #: The ops each remat policy saves inside a block; the rest is recomputed.
 #: "dots" is ``dots_with_no_batch_dims_saveable``: the outputs of products
 #: without batch dims (``mm``, ``addmm``: every dense layer), not the
-#: attention's batched products or anything elementwise. "full" (None)
-#: saves nothing inside the block.
+#: attention's or the experts' batched products or anything elementwise.
+#: "full" (None) saves nothing inside the block.
 _REMAT_POLICIES = {
     "full": None,
-    "dots": _DOTS,
-    "dots_attn": _DOTS + _ATTN,
-    "attn": _ATTN,
+    "dots": _DOTS + _EXCHANGE,
+    "dots_attn": _DOTS + _ATTN + _EXCHANGE,
+    "attn": _ATTN + _EXCHANGE,
 }
 
 
@@ -183,12 +190,14 @@ def _default_device(device) -> torch.device:
     return torch.device("cuda")
 
 
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+def _lecun_normal_(w: torch.Tensor, gen: torch.Generator,
+                   fan_in: Optional[int] = None) -> None:
     """flax's ``lecun_normal``: a normal truncated at two standard
-    deviations, rescaled so the variance is ``1 / fan_in``, the product of
-    the weight's dims after the first (a Linear's ``in``, a conv's ``in *
-    kh * kw``)."""
-    std = (1.0 / w[0].numel()) ** 0.5 / 0.87962566103423978
+    deviations, rescaled so the variance is ``1 / fan_in``; by default the
+    product of the weight's dims after the first (a Linear's ``in``, a
+    conv's ``in * kh * kw``)."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
@@ -374,18 +383,57 @@ class Block(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+def decoder_trunk(model: nn.Module, tokens: torch.Tensor):
+    """Embedding → blocks → final norm → LM head of ``model`` (a
+    :class:`Llama` or a model built like one), the counterpart of JAX's
+    ``decoder_trunk``. Returns the f32 logits and the list of what the
+    blocks returned beside their output (a Mixtral block's aux loss; empty
+    for the Llama's blocks). Each block runs under remat when the config
+    asks for it and gradients are on.
+
+    ``tokens`` is ``[B, T]``. Under an ambient mesh with an ``sp`` axis it
+    is this rank's shard of the sequence, and its positions start at the
+    shard's offset (the GSPMD model sees the global positions)."""
+    c = model.cfg
+    x = model.embedding[tokens].to(c.dtype)
+    T = tokens.shape[1]
+    mesh = get_mesh()
+    start = mesh.axis("sp").index * T if mesh is not None \
+        and "sp" in mesh.shape else 0
+    positions = torch.arange(start, start + T, device=tokens.device)[None]
+    sown = []
+    for block in model.blocks:
+        if c.remat and torch.is_grad_enabled():
+            out = _remat(block, c.remat_policy)(x, positions)
+        else:
+            out = block(x, positions)
+        if isinstance(out, tuple):
+            x, extra = out
+            sown.append(extra)
+        else:
+            x = out
+    x = model.final_norm(x)
+    if c.tie_embeddings:
+        return head_logits(x, model.embedding, c.dtype), sown
+    return model.lm_head(x), sown
+
+
 class Llama(nn.Module):
     """The decoder: embedding → blocks → final norm → LM head. Parameters
     are made on ``device`` (the context's device, else ``"cuda"``) from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``, in module order. ``block``
+    makes each layer from the config and the device (a subclass passes its
+    own)."""
 
-    def __init__(self, cfg: LlamaConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: LlamaConfig, *, device=None, seed: int = 0,
+                 block=None):
         super().__init__()
         device = _default_device(device)
         c = self.cfg = cfg
+        block = Block if block is None else block
         self.embedding = nn.Parameter(
             torch.empty(c.vocab_size, c.dim, device=device))
-        self.blocks = nn.ModuleList(Block(c, device)
+        self.blocks = nn.ModuleList(block(c, device)
                                     for _ in range(c.n_layers))
         self.final_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
         self.lm_head = (None if c.tie_embeddings else
@@ -398,23 +446,6 @@ class Llama(nn.Module):
                     _lecun_normal_(mod.weight, gen)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``tokens`` ``[B, T]`` → f32 logits ``[B, T, V]``. Under an
-        ambient mesh with an ``sp`` axis, ``tokens`` is this rank's shard of
-        the sequence, and its positions start at the shard's offset (the
-        GSPMD model sees the global positions)."""
-        c = self.cfg
-        x = self.embedding[tokens].to(c.dtype)
-        T = tokens.shape[1]
-        mesh = get_mesh()
-        start = mesh.axis("sp").index * T if mesh is not None \
-            and "sp" in mesh.shape else 0
-        positions = torch.arange(start, start + T, device=tokens.device)[None]
-        for block in self.blocks:
-            if c.remat and torch.is_grad_enabled():
-                x = _remat(block, c.remat_policy)(x, positions)
-            else:
-                x = block(x, positions)
-        x = self.final_norm(x)
-        if c.tie_embeddings:
-            return head_logits(x, self.embedding, c.dtype)
-        return self.lm_head(x)
+        """``tokens`` ``[B, T]`` → f32 logits ``[B, T, V]``
+        (:func:`decoder_trunk`)."""
+        return decoder_trunk(self, tokens)[0]

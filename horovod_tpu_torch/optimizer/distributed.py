@@ -20,6 +20,16 @@ all three stages on a side stream, so they run during backward as the flat
 all-reduce does, and the result, a new tensor, is copied back into the
 gradient in ``synchronize()``.
 
+A parameter group may carry a ``replica_set`` (a ``ProcessSet``): its
+parameters are sharded so that only those ranks hold the same values (an
+expert bank over the ``ep`` axis, ``parallel/moe.py``). Their gradients are
+summed over that set and divided by the optimizer's rank count, which is
+their Average over the world: the other ranks' contributions reached the
+holders through the model's own exchange. A bucket never mixes groups. A
+group whose parameters do not require a gradient on a step (a bank frozen
+by ``train.make_gspmd_deferred_train_step``) is not reduced, and its
+``.grad`` stays None.
+
 With ``op=Adasum`` all gradients form ONE bucket: the JAX result has one
 ``(ca, cb)`` pair per butterfly level over the concatenation of every
 gradient, not one per bucket or per tensor. The hooks then only count, and
@@ -43,12 +53,25 @@ from ..core.process_sets import ProcessSet
 
 
 class _Bucket:
-    """Parameters whose gradients ride one all-reduce."""
+    """Parameters of one group whose gradients ride one all-reduce, and the
+    group's replica set (None: the optimizer's ranks)."""
 
-    def __init__(self, params: List[torch.nn.Parameter]):
+    def __init__(self, params: List[torch.nn.Parameter],
+                 replica_set: Optional[ProcessSet] = None):
         self.params = params
+        self.replica_set = replica_set
         self.pending = len(params)  # gradients not yet ready this step
         self.inflight = None        # (handle, [(param, wire shape, ctx)])
+
+
+class _Done:
+    """The handle of a reduction over one rank: nothing to wait for."""
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+
+    def wait(self) -> torch.Tensor:
+        return self.buf
 
 
 def _weak_hook(opt):
@@ -95,17 +118,25 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._op = op
             self._prescale = 1.0 / k
             self._postscale = 1.0
-        ordered = [p for g in self.param_groups for p in g["params"]
-                   if p.requires_grad]
+        self._world = n
+        ordered = [(i, p) for i, g in enumerate(self.param_groups)
+                   for p in g["params"] if p.requires_grad]
+        sets = [g.get("replica_set") for g in self.param_groups]
         if op == _ops.Adasum:
-            self._buckets = [_Bucket(ordered)]
+            if any(s is not None for s in sets):
+                raise ValueError("op=Adasum takes no replica_set groups")
+            self._buckets = [_Bucket([p for _, p in ordered])]
         else:
-            wire = [compression.wire_dtype_for(p.dtype) for p in ordered]
-            sizes = [(p.numel() * w.itemsize, w)
-                     for p, w in zip(ordered, wire)]
+            # One bucket never mixes groups: a group may have its own
+            # replica set, and a step may freeze a group (no gradient).
+            sizes = [(p.numel() * compression.wire_dtype_for(p.dtype)
+                      .itemsize, (compression.wire_dtype_for(p.dtype), i))
+                     for i, p in ordered]
             plan = _ops.plan_buckets(sizes, resolve_fusion_threshold_bytes())
-            self._buckets = [_Bucket([ordered[i] for i in idxs])
+            self._buckets = [_Bucket([ordered[j][1] for j in idxs],
+                                     sets[ordered[idxs[0]][0]])
                              for idxs in plan]
+        ordered = [p for _, p in ordered]
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
         self._passes = {p: 0 for p in ordered}
         for p in ordered:
@@ -134,9 +165,26 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             buf = bucket.params[0].grad.reshape(-1)
         else:
             buf = torch.cat([w.reshape(-1) for _, (w, _) in wires])
-        handle = _ops.allreduce_async_(
-            buf, self._op, process_set=self._process_set,
-            prescale_factor=self._prescale, postscale_factor=self._postscale)
+        rs = bucket.replica_set
+        if rs is None:
+            handle = _ops.allreduce_async_(
+                buf, self._op, process_set=self._process_set,
+                prescale_factor=self._prescale,
+                postscale_factor=self._postscale)
+        else:
+            # Parameters sharded so that only the replica set holds these
+            # values: the others' contributions already reached them, so
+            # their Average over the optimizer's n ranks is the sum over
+            # the replica set divided by n.
+            pre = self._prescale / (self._world if self._op == _ops.Average
+                                    else 1)
+            if rs.size() == 1:
+                buf.mul_(pre * self._postscale)
+                handle = _Done(buf)
+            else:
+                handle = _ops.allreduce_async_(
+                    buf, _ops.Sum, process_set=rs, prescale_factor=pre,
+                    postscale_factor=self._postscale)
         bucket.inflight = (handle, [(p, w.shape, c) for p, (w, c) in wires])
 
     def synchronize(self) -> None:
@@ -147,6 +195,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if self._op == _ops.Adasum:
             return self._synchronize_adasum()
         for bucket in self._buckets:
+            if bucket.inflight is None and not any(
+                    p.requires_grad for p in bucket.params):
+                continue  # a group frozen for this step: no gradient
             if bucket.inflight is None:
                 for p in bucket.params:
                     if p.grad is None:

@@ -46,14 +46,24 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     """Overwrite every rank's optimizer state in place with ``root_rank``'s:
     the state tensors (moments, step counters) by broadcast, the
     hyper-parameters of each param group as an object. A fresh optimizer,
-    whose state is still empty, has only its hyper-parameters to send."""
+    whose state is still empty, has only its hyper-parameters to send.
+
+    A group with a ``replica_set`` (parameters sharded over it,
+    ``DistributedOptimizer``) takes its state from the set's first rank
+    over the set alone, and keeps its own ``replica_set``."""
     with torch.no_grad():
         for group in optimizer.param_groups:
+            rs = group.get("replica_set")
             for p in group["params"]:
                 for value in optimizer.state.get(p, {}).values():
-                    if torch.is_tensor(value):
+                    if not torch.is_tensor(value):
+                        continue
+                    if rs is None:
                         _ops.broadcast_(value, root_rank)
-    hyper = [{k: v for k, v in g.items() if k != "params"}
+                    elif rs.size() > 1:
+                        _ops.broadcast_(value, rs.ranks[0], process_set=rs)
+    local = ("params", "replica_set")
+    hyper = [{k: v for k, v in g.items() if k not in local}
              for g in optimizer.param_groups]
     if _ctx.size() > 1:
         box = [hyper]

@@ -1,4 +1,4 @@
-"""Named meshes over a ``torch.distributed`` world: dp x sp for this slice.
+"""Named meshes over a ``torch.distributed`` world: dp, ep and sp.
 
 Counterpart of ``horovod_tpu/parallel/mesh.py``. A JAX mesh is an array of
 devices with named axes, and ``shard_map`` binds each axis name for the
@@ -14,10 +14,11 @@ most contiguous placement. Making a group is collective, so every rank
 makes every row's group of every axis, in one order, including the groups
 it is not in.
 
-This slice runs ``dp`` and ``sp``. The other canonical axes (``pp``,
-``fsdp``, ``ep``, ``tp``) belong to the model-parallel slice; a size > 1
-for one of them raises ``NotImplementedError``. ``create_hybrid_mesh``
-waits for the same slice (ROADMAP.md, section A).
+The port runs ``dp``, ``ep`` (the MoE experts, ``parallel/moe.py``) and
+``sp``. The other canonical axes (``pp``, ``fsdp``, ``tp``) belong to the
+model-parallel slice; a size > 1 for one of them raises
+``NotImplementedError``. ``create_hybrid_mesh`` waits for the same slice
+(ROADMAP.md, section A).
 
 :func:`set_mesh` makes a mesh ambient, the counterpart of
 ``jax.sharding.set_mesh``: the Llama's attention and the GSPMD step read it
@@ -40,7 +41,7 @@ AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
 #: The axes a later slice ports, and the slice that does.
 _LATER = {"pp": "the pipeline", "fsdp": "the model-parallel (FSDP)",
-          "ep": "the MoE (expert-parallel)", "tp": "the tensor-parallel"}
+          "tp": "the tensor-parallel"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +87,9 @@ def create_mesh(axis_sizes: Dict[str, int]) -> Mesh:
     for a, n in zip(names, sizes):
         if n > 1 and a in _LATER:
             raise NotImplementedError(
-                f"mesh axis {a!r} of size {n}: the port runs dp and sp; "
-                f"{a} comes with {_LATER[a]} slice (ROADMAP.md, section A)")
+                f"mesh axis {a!r} of size {n}: the port runs dp, ep and "
+                f"sp; {a} comes with {_LATER[a]} slice (ROADMAP.md, "
+                f"section A)")
     grid = torch.arange(world).reshape(sizes) if sizes else None
     coords = ([int(c) for c in
                torch.nonzero(grid == rank, as_tuple=False)[0]]

@@ -46,7 +46,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    "models/bert.py", "optimizer/sync_batch_norm.py",
                    "train/step_builder.py", "train/gspmd.py",
                    "parallel/mesh.py", "parallel/ring.py",
-                   "parallel/ulysses.py"):
+                   "parallel/ulysses.py", "parallel/moe.py",
+                   "models/mixtral.py", "optimizer/moe_opt.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -322,4 +323,33 @@ def test_declared_layout_must_cover_the_world(monkeypatch):
     try:
         assert (thvd.local_size(), thvd.cross_size()) == (1, 1)
     finally:
+        thvd.shutdown()
+
+
+def test_mesh_builds_ep_and_later_axes_still_raise(monkeypatch):
+    """``ep`` is built like dp and sp, in ``AXIS_ORDER``; fsdp, tp and pp
+    of size > 1 still raise and name the slice that ports them. A world of
+    one stands in for four: the size is patched and ``new_group`` records
+    the rows each rank must make."""
+    from horovod_tpu_torch.core import context_api
+    from horovod_tpu_torch.parallel import create_mesh
+    thvd.init(device="cpu")
+    made = []
+    try:
+        monkeypatch.setattr(context_api, "size", lambda: 4)
+        monkeypatch.setattr(dist, "new_group",
+                            lambda ranks: made.append(tuple(ranks)) or
+                            tuple(ranks))
+        mesh = create_mesh({"ep": 2, "dp": 2})
+        assert mesh.axis_names == ("dp", "ep")
+        assert mesh.axis("ep").ranks == (0, 1)
+        assert mesh.axis("dp").ranks == (0, 2)
+        assert mesh.axis("ep").group == (0, 1)
+        assert made == [(0, 2), (1, 3), (0, 1), (2, 3)]
+        for axis, slice_name in (("fsdp", "FSDP"), ("tp", "tensor-parallel"),
+                                 ("pp", "pipeline")):
+            with pytest.raises(NotImplementedError, match=slice_name):
+                create_mesh({"dp": 2, axis: 2})
+    finally:
+        monkeypatch.undo()
         thvd.shutdown()
