@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
-and of its Adasum, hierarchical, collective, context-parallel and
-expert-parallel paths across up to four cards where the machine has them.
+and of its Adasum, hierarchical, collective, context-parallel,
+expert-parallel, model-parallel and pipeline paths across up to four cards
+where the machine has them.
 
     python3 chip_smoke.py
 
@@ -193,6 +194,47 @@ Phases, one line each; any failure raises and the script exits nonzero:
    op of the MoE layers alone (the expert ``bmm`` s, routing and gathers,
    the exchange: ``moe_op_events``).
 
+17. model-parallel — fsdp and tp (``parallel/sharding.py``); it runs right
+   after phase 15, before this process allocates anything on the cards, and
+   needs two ranks: on one card it prints that and runs nothing. With 2 or
+   more cards it starts an NCCL world of 2 and on 4 cards one of 4.
+   (a) Parity at 2 layers of the Llama-3-8B widths, remat dots, 2 x 2048
+   tokens a data shard, AdamW(1e-4), one step on each mesh: ``{"fsdp": 2}``
+   and ``{"tp": 2}`` on 2 cards; ``{"fsdp": 4}``, ``{"dp": 2, "tp": 2}``,
+   ``{"fsdp": 2, "tp": 2}`` and ``{"tp": 4}`` on 4. Each rank first runs
+   the whole model (no mesh, the same seed, whose values the sharded model
+   holds block by block) over the same global batch, one data shard at a
+   time, on its own card, and keeps its block of each gradient. Requires
+   the first loss within 1e-3 relative of the whole model's, each gathered
+   gradient (its blocks' squared errors and norms summed over the world,
+   each block counted once) within 2^-5 normwise, every block
+   bit-identical on the ranks that hold it, and per step the collectives
+   and B1-B3 launches that ``mp_expected`` derives from the code.
+   (b) ``llama3_8b()`` at its full 32 layers on 4 cards, on ``{"fsdp": 4}``
+   and ``{"fsdp": 2, "tp": 2}``, 4 steps of 2 x 2048 tokens a data shard,
+   the last profiled on rank 0: finite, falling losses, the expected
+   collectives and B1/B2/B3 64/32/32 a step, blocks bit-identical; prints
+   the step time, tokens/s/GPU, MFU against 989 TFLOP/s with the FLOPs of
+   ``model_flops``, the worst rank's peak memory and the device time by
+   group, NCCL apart.
+18. pipeline — ``make_pipeline_train_step`` over ``{"pp": n}`` (2, and 4
+   on 4 cards), each stage one block of the Llama-3-8B widths in bf16 with
+   remat off, M = 8 microbatches of [1, 2048, 4096] and their targets, a
+   mean-squared loss, AdamW(1e-4), 3 steps of GPipe and of 1F1B, and on 4
+   cards GPipe on ``{"dp": 2, "pp": 2}``; like phase 17 it needs two
+   ranks. Rank 0 composes every stage in sequence on its card over the
+   same microbatches (every dp shard's): the first loss within 1e-3
+   relative and each stage's gradient (gathered to rank 0) within 2^-5
+   normwise. Requires per step B1 once a microbatch (GPipe, and 1F1B's last
+   stage) or twice (1F1B's other stages: its forward and its recompute),
+   B2 and B3 once. Prints the step time and the measured bubble, 1 - M t /
+   step with t one microbatch's stage forward and backward (1F1B: plus
+   its forward), against (n - 1) / (M + n - 1) for GPipe and 2 (n - 1) /
+   (M + 2 (n - 1)) for 1F1B. Phases 17 and 18 print their seconds.
+
+After phase 5, B1, B2 and B3 are also held and timed at the tp-local head
+counts of the main shape (16 heads at tp 2, 8 at tp 4: ``tp-kernels``).
+
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. A kernel's ``launches`` are those of
 its main path alone: phase 7's run for B1-B3, phase 3's for B4 and B5 (0 on
@@ -202,7 +244,9 @@ read from a run whose counts were set to 0 just before it: ``train`` (phase
 its three checked steps for B1-B3 and its ``hierarchical_adasum`` call for
 B4 and B5), ``longctx`` (phase 14, every arm's steps), ``context``
 (phase 13, rank 0's checked steps), ``mixtral`` (phase 16, its exact-AdamW
-steps) and ``mixtral-ep`` (phase 15, rank 0's steps).
+steps), ``mixtral-ep`` (phase 15, rank 0's steps), ``model-parallel``
+(phase 17, rank 0's parity steps at 2 layers) and ``pipeline`` (phase 18,
+rank 0's steps).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -810,13 +854,22 @@ def run_world(phase, n, env=None, limit=900):
                     env=dict(base, HOROVOD_PROCESS_ID=str(r)),
                     stdout=logs[-1], stderr=subprocess.STDOUT))
             deadline = time.monotonic() + limit
-            for r, p in enumerate(procs):
-                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
-                if rc != 0:
-                    with open(os.path.join(d, f"rank{r}.log")) as f:
-                        tail = f.read()[-4000:]
-                    raise AssertionError(f"{phase} rank {r} exited {rc}:\n"
-                                         f"{tail}")
+            # Poll every rank: one that fails leaves the others waiting in
+            # a collective, so stop at the first failure, not at the limit.
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad or None not in codes or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+            bad = bad or [r for r, c in enumerate(codes) if c is None]
+            if bad:
+                r = bad[0]
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                what = ("timed out" if codes[r] is None
+                        else f"exited {codes[r]}")
+                raise AssertionError(f"{phase} rank {r} {what}:\n{tail}")
         finally:
             for p in procs:
                 p.kill()
@@ -2328,6 +2381,478 @@ def mixtral_ep_phase(torch, card):
     return total
 
 
+#: The model-parallel phase's gates: the first loss against the whole
+#: model's, relative, and each gathered gradient, normwise.
+MP_LOSS_RTOL = 1e-3
+MP_GRAD_NORMWISE = 2 ** -5
+#: Tokens a data shard (rows x sequence) in the model-parallel phase.
+MP_B, MP_T = 2, 2048
+MP_PARITY_MESHES = {2: [{"fsdp": 2}, {"tp": 2}],
+                    4: [{"fsdp": 4}, {"dp": 2, "tp": 2},
+                        {"fsdp": 2, "tp": 2}, {"tp": 4}]}
+MP_FULL_MESHES = [{"fsdp": 4}, {"fsdp": 2, "tp": 2}]
+
+
+def mp_expected(axes, n_layers):
+    """The collectives a step of the Llama implies under remat dots
+    (``parallel/sharding.py``), per rank: each of a layer's 9 fsdp-sharded
+    parameters (7 weights, 2 norm scales) gathered in the forward and again
+    in the recompute, the final norm and the head once, each reduce-scattered
+    once; over tp one all-reduce for the embedding, 2 a layer forward, 2
+    backward, 1 a layer in the recompute (the all-reduce after ``w2`` ends
+    the block, and the recompute stops once the saved tensors the backward
+    needs are rebuilt: ``torch.utils.checkpoint``'s early stop), 1 before the
+    head backward and 2 for the loss. B1 twice a layer (forward and
+    recompute), B2 and B3 once."""
+    L = n_layers
+    fsdp, tp = axes.get("fsdp", 1) > 1, axes.get("tp", 1) > 1
+    return ({"all_gather": (18 * L + 2) * fsdp,
+             "reduce_scatter": (9 * L + 2) * fsdp,
+             "tp_all_reduce": (5 * L + 4) * tp},
+            {"fa_fwd": 2 * L, "fa_bwd_dq": L, "fa_bwd_dkv": L})
+
+
+def model_flops(cfg, T):
+    """Model FLOPs a token (no recompute): 6 x the parameters of the
+    products (each layer's seven weights and the head) and the causal
+    attention, 6 x layers x dim x T (half of 12 L d T)."""
+    hd = cfg.dim // cfg.n_heads
+    layer = (cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * cfg.dim + 3 * cfg.dim * cfg.hidden_dim)
+    n = cfg.n_layers * layer + cfg.vocab_size * cfg.dim
+    return 6 * n + 6 * cfg.n_layers * cfg.dim * T
+
+
+def _mp_train(torch, hvd, mesh, cfg, tokens, n_steps, profile, first=None):
+    """``n_steps`` GSPMD steps of the Llama ``cfg`` built under ``mesh``
+    (seed 0), AdamW(1e-4); ``first(model)`` runs on the first step's reduced
+    gradients before the update. Returns the step's record."""
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import sharding
+    from horovod_tpu_torch.train import (create_gspmd_train_state,
+                                         make_gspmd_train_step,
+                                         mesh_param_groups, shard_tokens)
+    model = hvd_llama.Llama(cfg, seed=0, mesh=mesh)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(mesh_param_groups(model, mesh), lr=1e-4,
+                          weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    state = create_gspmd_train_state(model, opt, mesh)
+    step = make_gspmd_train_step(model, opt, mesh)
+    shard = shard_tokens(tokens, mesh)
+    synchronize = opt.synchronize
+    done = []
+
+    def check_first_step():
+        synchronize()
+        if first is not None and not done:
+            done.append(first(model))
+
+    opt.synchronize = check_first_step
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": [], "times": [], "launches": [], "counts": []}
+    prof = None
+    for i in range(n_steps):
+        fa.reset_launch_counts()
+        sharding.reset_counts()
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if profile and i == n_steps - 1
+              else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, shard)
+            res["losses"].append(loss.item())
+            res["times"].append(time.perf_counter() - t)
+        res["launches"].append({k: f.launches for k, f in fa.KERNELS.items()})
+        res["counts"].append(dict(sharding.counts))
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if prof is not None:
+        res["profile"] = device_breakdown(prof, res["times"][-1])
+    differ = 0
+    for p in model.parameters():
+        rs = sharding.replica_set(mesh, sharding.holder_axes(p))
+        buf = p.detach().clone()
+        hvd.broadcast_(buf, rs.ranks[0] if rs is not None else 0,
+                       process_set=rs)
+        differ += int(not torch.equal(buf, p.detach()))
+    res["params_differing"] = differ
+    res["first"] = done[0] if done else None
+    del state, step, opt, model, synchronize, check_first_step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def model_parallel_worker(out_dir):
+    """One rank of the ``model-parallel`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.parallel import create_mesh, sharding
+    from horovod_tpu_torch.train import vocab_parallel_nll
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    runs = []
+    for axes in MP_PARITY_MESHES[n]:
+        t0 = time.perf_counter()
+        mesh = create_mesh(axes)
+        shards = axes.get("dp", 1) * axes.get("fsdp", 1)
+        cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                                  use_flash=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (MP_B * shards, MP_T),
+                               generator=gen, device="cuda")
+        # The whole model on this rank's card, over the global batch one
+        # data shard at a time; keep this rank's block of each gradient.
+        whole = hvd_llama.Llama(cfg, seed=0, mesh=None)
+        places = {k: sharding.placement(mesh, hvd_llama.logical_names(k),
+                                        p.shape)
+                  for k, p in whole.named_parameters()}
+        count = tokens.shape[0] * (MP_T - 1)
+        ref_loss = 0.0
+        for d in range(shards):
+            rows = tokens[d * MP_B:(d + 1) * MP_B]
+            nll = vocab_parallel_nll(whole(rows)[:, :-1], rows[:, 1:]).sum()
+            (nll / count).backward()
+            ref_loss += nll.item() / count
+        ref = {k: places[k].block(p.grad).clone()
+               for k, p in whole.named_parameters()}
+        del whole, nll
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def gaps(model):
+            """Per gradient, its squared error and squared norm summed over
+            the blocks, each block counted once (divided by its holders),
+            summed over the world: the gathered gradient's normwise gap."""
+            sums = []
+            for k, p in model.named_parameters():
+                holders = n // math.prod(
+                    a.size for a in p.placement.axes if a is not None)
+                g, want = p.grad.float(), ref[k]
+                sums += [(g - want).square().sum() / holders,
+                         want.square().sum() / holders]
+            sums = torch.stack(sums)
+            dist.all_reduce(sums)
+            per = (sums[0::2] / sums[1::2]).sqrt()
+            return [per.max().item(), (sums[0::2].sum()
+                                       / sums[1::2].sum()).sqrt().item()]
+
+        res = _mp_train(torch, hvd, mesh, cfg, tokens, 1, False, gaps)
+        want_counts, want_launches = mp_expected(axes, cfg.n_layers)
+        res.update(axes=axes, ref_loss=ref_loss, want_counts=want_counts,
+                   want_launches=want_launches,
+                   seconds=time.perf_counter() - t0)
+        runs.append(res)
+        del ref, places
+        gc.collect()
+        torch.cuda.empty_cache()
+    full = []
+    for axes in (MP_FULL_MESHES if n == 4 else []):
+        t0 = time.perf_counter()
+        mesh = create_mesh(axes)
+        shards = axes.get("dp", 1) * axes.get("fsdp", 1)
+        cfg = dataclasses.replace(hvd_llama.llama3_8b(), use_flash=True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (MP_B * shards, MP_T),
+                               generator=gen, device="cuda")
+        res = _mp_train(torch, hvd, mesh, cfg, tokens, 4, rank == 0)
+        want_counts, want_launches = mp_expected(axes, cfg.n_layers)
+        res.update(axes=axes, want_counts=want_counts,
+                   want_launches=want_launches, shards=shards,
+                   flops_per_token=model_flops(cfg, MP_T),
+                   seconds=time.perf_counter() - t0)
+        full.append(res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs, "full": full}, f)
+    hvd.shutdown()
+    return 0
+
+
+def _check_mp_run(what, run):
+    if run["launches"] != [run["want_launches"]] * len(run["launches"]):
+        raise AssertionError(f"{what}: B1-B3 launches per step "
+                             f"{run['launches']}, expected "
+                             f"{run['want_launches']}")
+    if run["counts"] != [run["want_counts"]] * len(run["counts"]):
+        raise AssertionError(f"{what}: collectives per step {run['counts']},"
+                             f" expected {run['want_counts']}")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"{what}: non-finite loss {run['losses']}")
+    if run["params_differing"]:
+        raise AssertionError(f"{what}: {run['params_differing']} blocks "
+                             "differ from their first holder's")
+
+
+def model_parallel_phase(torch, card):
+    """The ``model-parallel`` phase (module doc). Returns rank 0's launches
+    of B1-B3 over its parity steps, or zeros on one card."""
+    total = dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("model-parallel", "one card: fsdp and tp split the model over "
+                              "2 or more ranks; on one card the phase runs "
+                              "nothing")
+        return total
+    for n in [2] + ([4] if cards >= 4 else []):
+        t0 = time.perf_counter()
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+               if n < cards else None)
+        ranks = run_world("model-parallel", n, env)
+        for res in ranks:
+            for run in res["runs"] + res["full"]:
+                _check_mp_run(f"{n} ranks, {run['axes']}, rank "
+                              f"{res['rank']}", run)
+        for i, run in enumerate(ranks[0]["runs"]):
+            what = f"{n} ranks, {run['axes']}, 2 layers"
+            rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+            worst, whole = run["first"]
+            if not rel <= MP_LOSS_RTOL:
+                raise AssertionError(f"{what}: first loss {run['losses'][0]}"
+                                     f" vs the whole model's "
+                                     f"{run['ref_loss']}")
+            if not worst <= MP_GRAD_NORMWISE:
+                raise AssertionError(f"{what}: a gathered gradient is off "
+                                     f"the whole model's by {worst:.4f} "
+                                     "normwise")
+            log("model-parallel", f"{what}, {MP_B} x {MP_T} tokens a data "
+                                  f"shard, remat dots, AdamW(1e-4), one step"
+                                  f": loss {run['losses'][0]:.6f} vs the "
+                                  f"whole model's {run['ref_loss']:.6f} (rel"
+                                  f" {rel:.2e}, gate {MP_LOSS_RTOL}); "
+                                  f"gathered gradients vs the whole model's:"
+                                  f" worst tensor {worst:.2e} normwise, all "
+                                  f"{whole:.2e} (gate 2^-5); collectives "
+                                  f"{run['counts'][0]}; B1-B3 "
+                                  f"{run['launches'][0]}; blocks "
+                                  f"bit-identical on their holders; peak "
+                                  f"{run['peak_gb']:.1f} GB; "
+                                  f"{run['seconds']:.1f} s; on {card}")
+            for k in total:
+                total[k] += run["launches"][0][k]
+        for j, run in enumerate(ranks[0]["full"]):
+            what = f"{n} ranks, {run['axes']}, llama3_8b, 32 layers"
+            if not run["losses"][-1] < run["losses"][0]:
+                raise AssertionError(f"{what}: loss did not fall: "
+                                     f"{run['losses']}")
+            timed = sorted(run["times"][1:-1])
+            step_s = timed[len(timed) // 2]
+            tokens = run["shards"] * MP_B * MP_T / n
+            mfu = tokens * run["flops_per_token"] / step_s / H100_BF16_FLOPS
+            peak = max(r["full"][j]["peak_gb"] for r in ranks)
+            log("model-parallel", f"{what}, {MP_B} x {MP_T} tokens a data "
+                                  f"shard, remat dots, AdamW(1e-4): losses "
+                                  f"{run['losses']}; step "
+                                  f"{step_s * 1e3:.1f} ms (first "
+                                  f"{run['times'][0] * 1e3:.1f} ms, "
+                                  f"profiled {run['times'][-1] * 1e3:.1f} "
+                                  f"ms); {tokens / step_s:.0f} tokens/s/GPU;"
+                                  f" MFU {mfu:.1%} of 989 TFLOP/s at "
+                                  f"{run['flops_per_token'] / 1e9:.1f} "
+                                  f"GFLOP a token; peak {peak:.1f} GB (worst"
+                                  f" rank); collectives a step "
+                                  f"{run['counts'][0]}; B1-B3 a step "
+                                  f"{run['launches'][0]}; blocks "
+                                  f"bit-identical on their holders; "
+                                  f"{run['seconds']:.1f} s; on {card}")
+            log("model-parallel", f"{what}, rank 0, step 4 under "
+                                  f"torch.profiler: {run['profile']}")
+        log("model-parallel", f"{n} ranks: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+#: The pipeline phase's microbatches, each [1, PP_T, dim].
+PP_M, PP_T = 8, 2048
+
+
+def _pp_stage(torch, cfg, seed):
+    """One Llama block (stage), its dense weights drawn as the Llama draws
+    them from a generator seeded with ``seed``."""
+    from horovod_tpu_torch.models import llama as hvd_llama
+    blk = hvd_llama.Block(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for mod in blk.modules():
+            if isinstance(mod, hvd_llama.Dense):
+                hvd_llama._lecun_normal_(mod.weight, gen)
+    return blk
+
+
+def pipeline_worker(out_dir):
+    """One rank of the ``pipeline`` phase; writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.train import (create_pipeline_train_state,
+                                         make_pipeline_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cfg = dataclasses.replace(hvd_llama.llama3_8b(), use_flash=True,
+                              remat=False)
+    pos = torch.arange(PP_T, device="cuda")[None]
+    stage_fn = lambda blk, x: blk(x, pos)
+    mse = lambda y, t: (y.float() - t.float()).square().mean()
+    cases = [("gpipe", None), ("1f1b", None)] + (
+        [("gpipe", 2)] if n == 4 else [])
+    runs = []
+    for schedule, dp in cases:
+        t0 = time.perf_counter()
+        axes = {"pp": n} if dp is None else {"dp": dp, "pp": n // dp}
+        mesh = create_mesh(axes)
+        pp = mesh.axis("pp")
+        dpi = mesh.axis("dp").index if dp else 0
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        shape = ((dp or 1) * PP_M, 1, PP_T, cfg.dim)
+        xs = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=cfg.dtype)
+        ts = torch.randn(shape, generator=gen, device="cuda",
+                         dtype=cfg.dtype)
+        x, t = xs[dpi * PP_M:(dpi + 1) * PP_M], ts[dpi * PP_M:(dpi + 1) * PP_M]
+        blk = _pp_stage(torch, cfg, 100 + pp.index)
+        params = list(blk.parameters())
+        # One stage's forward, and forward and backward, on one microbatch.
+        with torch.no_grad():
+            t_f = time_ms(lambda: stage_fn(blk, x[0]), 3)
+        t_fb = time_ms(lambda: torch.autograd.grad(
+            mse(stage_fn(blk, x[0]), t[0]), params), 3)
+        opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+        state = create_pipeline_train_state(blk, opt)
+        step = make_pipeline_train_step(
+            stage_fn, (lambda y, tt: mse(y, tt)), opt, mesh=mesh,
+            schedule=schedule, dp_axis_name="dp" if dp else None)
+        opt_step, kept = opt.step, []
+
+        def keep_first(*a, **k):
+            if not kept:
+                kept.append(torch.cat([p.grad.reshape(-1).float()
+                                       for p in params]))
+            return opt_step(*a, **k)
+
+        opt.step = keep_first
+        losses, times, launches = [], [], []
+        for _ in range(3):
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, loss = step(state, x, t)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t1)
+            launches.append({k: f.launches for k, f in fa.KERNELS.items()})
+        res = {"schedule": schedule, "dp": dp, "axes": axes, "n": pp.size,
+               "losses": losses, "times": times, "launches": launches,
+               "t_f": t_f, "t_fb": t_fb, "stage": pp.index}
+        grads = kept.pop()
+        every = ([torch.empty_like(grads) for _ in range(n)] if rank == 0
+                 else None)
+        dist.gather(grads, every, dst=0)
+        del state, step, opt, blk, params, grads, keep_first, opt_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            # The stages composed in sequence on this card, over every dp
+            # shard's microbatches: the mean loss and its gradients.
+            blocks = [_pp_stage(torch, cfg, 100 + s) for s in range(pp.size)]
+            ref_loss = 0.0
+            for mb in range(xs.shape[0]):
+                h = xs[mb]
+                for b in blocks:
+                    h = stage_fn(b, h)
+                lv = mse(h, ts[mb]) / xs.shape[0]
+                lv.backward()
+                ref_loss += lv.item()
+            stage_of = [r // (dp or 1) for r in range(n)]  # pp-major grid
+            gaps = []
+            for r, g in enumerate(every):
+                want = torch.cat([p.grad.reshape(-1).float()
+                                  for p in blocks[stage_of[r]].parameters()])
+                gaps.append(((g - want).norm() / want.norm()).item())
+            res.update(ref_loss=ref_loss, grad_normwise=gaps)
+            del blocks, every
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        runs.append(res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs}, f)
+    hvd.shutdown()
+    return 0
+
+
+def pipeline_phase(torch, card):
+    """The ``pipeline`` phase (module doc). Returns rank 0's launches of
+    B1-B3 over its steps, or zeros on one card."""
+    total = dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("pipeline", "one card: a pipeline needs a pp axis of 2 or more "
+                        "ranks; on one card the phase runs nothing")
+        return total
+    for n in [2] + ([4] if cards >= 4 else []):
+        t0 = time.perf_counter()
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+               if n < cards else None)
+        ranks = run_world("pipeline", n, env)
+        for i, run in enumerate(ranks[0]["runs"]):
+            what = f"{n} ranks, {run['axes']}, {run['schedule']}"
+            stages = run["n"]
+            for r in ranks:
+                rr = r["runs"][i]
+                last = rr["stage"] == stages - 1
+                b1 = PP_M if (run["schedule"] == "gpipe" or last) \
+                    else 2 * PP_M
+                want = {"fa_fwd": b1, "fa_bwd_dq": PP_M, "fa_bwd_dkv": PP_M}
+                if rr["launches"] != [want] * 3:
+                    raise AssertionError(f"{what}, rank {r['rank']}: B1-B3 "
+                                         f"per step {rr['launches']}, "
+                                         f"expected {want}")
+                if not all(math.isfinite(x) for x in rr["losses"]):
+                    raise AssertionError(f"{what}: non-finite loss "
+                                         f"{rr['losses']}")
+            rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+            if not rel <= MP_LOSS_RTOL:
+                raise AssertionError(f"{what}: loss {run['losses'][0]} vs "
+                                     f"the sequential {run['ref_loss']}")
+            if not max(run["grad_normwise"]) <= MP_GRAD_NORMWISE:
+                raise AssertionError(f"{what}: stage gradients off the "
+                                     f"sequential ones by "
+                                     f"{run['grad_normwise']} normwise")
+            step_ms = sorted(run["times"][1:])[0] * 1e3
+            if run["schedule"] == "gpipe":
+                busy = PP_M * run["t_fb"]
+                theory = (stages - 1) / (PP_M + stages - 1)
+            else:
+                busy = PP_M * (run["t_f"] + run["t_fb"])
+                theory = 2 * (stages - 1) / (PP_M + 2 * (stages - 1))
+            log("pipeline", f"{what}, one llama3_8b block a stage, bf16, "
+                            f"remat off, M = {PP_M} x [1, {PP_T}, 4096], "
+                            f"AdamW(1e-4): losses {run['losses']}; first vs "
+                            f"the blocks in sequence {run['ref_loss']:.6f} "
+                            f"(rel {rel:.2e}, gate {MP_LOSS_RTOL}); stage "
+                            f"gradients normwise by rank "
+                            f"{[f'{g:.2e}' for g in run['grad_normwise']]} "
+                            f"(gate 2^-5); step {step_ms:.1f} ms (first "
+                            f"{run['times'][0] * 1e3:.1f}); one microbatch's"
+                            f" stage forward {run['t_f']:.2f} ms, forward "
+                            f"and backward {run['t_fb']:.2f} ms; measured "
+                            f"bubble {1 - busy / step_ms:.1%} vs "
+                            f"{theory:.1%} in theory; B1-B3 a step on rank "
+                            f"0 {run['launches'][0]}; {run['seconds']:.1f} "
+                            f"s; on {card}")
+            for k in total:
+                total[k] += run["launches"][0][k]
+        log("pipeline", f"{n} ranks: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2363,6 +2888,12 @@ def main():
     collectives_launches = collectives_phase(torch, card)
     context_launches = context_phase(torch, card)
     ep_launches = mixtral_ep_phase(torch, card)
+    t0 = time.perf_counter()
+    mp_launches = model_parallel_phase(torch, card)
+    log("model-parallel", f"phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pp_launches = pipeline_phase(torch, card)
+    log("pipeline", f"phase {time.perf_counter() - t0:.1f} s")
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -2394,6 +2925,25 @@ def main():
                        f"{library[name]:.4f} ms; on {card}")
     del args
     torch.cuda.empty_cache()
+    for heads in (16, 8):  # the tp-local heads of llama3_8b at tp 2 and 4
+        tp_errs, tp_args, tp_kw = kernel_case(
+            fa, torch, dtype=torch.bfloat16, **dict(big, H=heads))
+        tp_ms, tp_lib, _ = time_kernels(fa, torch, tp_args, tp_kw)
+        for name in fa.KERNELS:
+            bnd = bound(name, 2, heads, 2048, 2048, 128, True, 2)
+            tflops = fa_flops(name, 2, heads, 2048, 2048, 128, True) / (
+                tp_ms[name][0] * 1e-3) / 1e12
+            log("tp-kernels", f"{name} at B=2, T=2048, H={heads}, D=128, "
+                              f"causal, bf16: {tp_ms[name][0]:.4f} ms, "
+                              f"{tflops:.1f} TFLOP/s, "
+                              f"{bnd[0] / tp_ms[name][0]:.1%} of its bound "
+                              f"({bnd[0]:.4f} ms by {bnd[1]}); plain "
+                              f"{tp_ms[name][1]:.3f} ms; SDPA "
+                              f"{tp_lib[name]:.4f} ms; agrees with plain: "
+                              f"{fmt({name: tp_errs[name]})[name]}; on "
+                              f"{card}")
+        del tp_args
+        torch.cuda.empty_cache()
 
     log("model", f"small f32 Llama, flash on vs off: worst err/tol "
                  f"{small_model_check(torch, hvd_llama):.3f}")
@@ -2502,7 +3052,9 @@ def main():
                       "longctx": longctx_launches[name],
                       "context": context_launches[name],
                       "mixtral": mixtral_launches[name],
-                      "mixtral-ep": ep_launches[name]}
+                      "mixtral-ep": ep_launches[name],
+                      "model-parallel": mp_launches[name],
+                      "pipeline": pp_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name]}
@@ -2535,4 +3087,8 @@ if __name__ == "__main__":
         sys.exit(context_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mixtral-ep-worker"]:
         sys.exit(mixtral_ep_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--model-parallel-worker"]:
+        sys.exit(model_parallel_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--pipeline-worker"]:
+        sys.exit(pipeline_worker(sys.argv[2]))
     sys.exit(main())

@@ -13,6 +13,13 @@ is transposed on the way across. Both flax layer layouts are read: unrolled
 With ``tie_embeddings`` neither side has an LM head: the logits use the
 embedding.
 
+Under a mesh with ``fsdp`` or ``tp`` axes, :func:`llama_params_from_flax`
+gives one rank's block of each parameter, as the model built under that
+mesh holds it (``parallel/sharding.py``; a flax kernel ``[in, out]``
+split over fsdp on its ``embed`` dim 0 is the port's ``[out, in]`` weight
+split on dim 1); :func:`llama_params_to_flax` takes whole tensors, which
+``sharding.full_state_dict`` gathers from the blocks.
+
 :func:`mixtral_params_from_flax` reads a flax ``Mixtral`` the same way and
 keeps only one ep rank's slice of each expert bank.
 
@@ -30,7 +37,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .models.llama import resolve_scan_layers
+from .models.llama import logical_names, resolve_scan_layers
+from .parallel.sharding import placement
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w1", "w2", "w3")
@@ -77,14 +85,19 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def llama_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (optionally under a ``"params"`` key) → the port's
-    ``state_dict`` (f32 CPU tensors)."""
+def llama_params_from_flax(params: Dict, cfg,
+                           mesh=None) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (optionally under a ``"params"`` key; unrolled or
+    scanned) → the port's ``state_dict`` (f32 CPU tensors); with ``mesh``,
+    this rank's block of each parameter on it."""
     def mlp(b, pre, sd):
         for n in _MLP:
             sd[pre + f"mlp.{n}.weight"] = _np(b["mlp"][n]["kernel"]).T
-    return _tensors(_decoder_from_flax(params.get("params", params), cfg,
-                                       mlp))
+    sd = _tensors(_decoder_from_flax(params.get("params", params), cfg, mlp))
+    if mesh is None:
+        return sd
+    return {k: placement(mesh, logical_names(k), v.shape).block(v)
+            .contiguous() for k, v in sd.items()}
 
 
 def _index_tree(tree, i):

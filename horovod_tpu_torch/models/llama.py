@@ -3,10 +3,18 @@
 Counterpart of ``horovod_tpu/models/llama.py``: bf16 compute with f32
 parameters, GQA attention with RoPE and a causal mask, a SwiGLU MLP, RMSNorm,
 and an LM head, untied or tied to the embedding. Data parallelism lives
-outside the model (``DistributedOptimizer``), so there are no sharding
-annotations here. Context parallelism (``attention_impl`` "ring" or
-"ulysses") engages when the ambient mesh (``parallel.set_mesh``) has an
-``sp`` axis of size > 1: each rank then holds one shard of the sequence.
+outside the model (``DistributedOptimizer``). Context parallelism
+(``attention_impl`` "ring" or "ulysses") engages when the ambient mesh
+(``parallel.set_mesh``) has an ``sp`` axis of size > 1: each rank then
+holds one shard of the sequence.
+
+Model parallelism: each parameter carries its logical names
+(:data:`PARAM_NAMES`, JAX's ``_part`` names in the port's layout), and a
+model built under a mesh with ``fsdp`` or ``tp`` > 1 holds only this
+rank's block of each (``parallel/sharding.py``). Under tp the attention
+runs ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads, split
+contiguously, and the logits stay vocab-sharded ``[B, T, V / tp]``; under
+fsdp each weight is gathered where it is used.
 
 Remat (``remat``, ``remat_policy``) runs each block under
 ``torch.utils.checkpoint`` with a selective-checkpoint policy per JAX
@@ -47,8 +55,34 @@ from torch.utils.checkpoint import (checkpoint,
 from ..core import context_api as _ctx
 from ..ops.flash_attention import flash_attention
 from ..parallel import moe as _moe  # noqa: F401  (hvd::expert_alltoall)
-from ..parallel.mesh import axis_size, get_mesh
+from ..parallel.mesh import Mesh, axis_size, get_mesh
+from ..parallel.sharding import LOGICAL_RULES  # noqa: F401  (JAX's home)
+from ..parallel.sharding import (copy_to_tp, gather_param, placement,
+                                 placement_of, reduce_from_tp, set_placement,
+                                 vocab_parallel_embedding)
 from ._flash import resolve_flash
+
+#: Each parameter's logical names by its attribute name, in the port's
+#: layout: a dense weight is ``[out, in]``, so JAX's ``("embed", "heads")``
+#: kernel of ``wq`` is ``("heads", "embed")`` here.
+PARAM_NAMES = {
+    "embedding": ("vocab", "embed_table"),
+    "lm_head": ("vocab", "embed"),
+    "scale": ("embed",),
+    "wq": ("heads", "embed"),
+    "wk": ("kv_heads", "embed"),
+    "wv": ("kv_heads", "embed"),
+    "wo": ("embed", "heads"),
+    "w1": ("mlp", "embed"),
+    "w3": ("mlp", "embed"),
+    "w2": ("embed", "mlp"),
+}
+
+
+def logical_names(key: str):
+    """The logical names of the parameter at state-dict ``key``."""
+    parts = key.split(".")
+    return PARAM_NAMES[parts[-2] if parts[-1] == "weight" else parts[-1]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,18 +235,29 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator,
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
-class Dense(nn.Linear):
+def _tp_axis(mesh: Optional[Mesh]):
+    return mesh.axis("tp") if mesh is not None \
+        and axis_size(mesh, "tp") > 1 else None
+
+
+class Dense(nn.Module):
     """Bias-free ``nn.Dense(dtype=...)``: input and weight cast to the
-    compute dtype, output in it."""
+    compute dtype, output in it. The weight is ``[out, in]``; with logical
+    ``names`` on a ``mesh`` it is this rank's block, gathered over fsdp in
+    the compute dtype where it is used."""
 
     def __init__(self, fan_in: int, fan_out: int, dtype: torch.dtype,
-                 device):
-        super().__init__(fan_in, fan_out, bias=False, device=device)
+                 device, names=None, mesh: Optional[Mesh] = None):
+        super().__init__()
+        place = placement(mesh, names or (None, None), (fan_out, fan_in))
+        self.weight = nn.Parameter(torch.empty(place.local_shape(),
+                                               device=device))
+        set_placement(self.weight, place)
         self.compute_dtype = dtype
 
     def forward(self, x):
         return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
+                        gather_param(self.weight, self.compute_dtype))
 
 
 class _HeadProduct(torch.autograd.Function):
@@ -267,21 +312,29 @@ class LMHead(Dense):
     """The untied LM head (:func:`head_logits` over its own weight)."""
 
     def forward(self, x):
-        return head_logits(x, self.weight, self.compute_dtype)
+        return head_logits(x, gather_param(self.weight, self.compute_dtype),
+                           self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device):
+    """RMSNorm with an f32 scale, split over fsdp on a mesh and gathered
+    in f32 where it is used."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        place = placement(mesh, PARAM_NAMES["scale"], (dim,))
+        self.scale = nn.Parameter(torch.ones(place.local_shape(),
+                                             device=device))
+        set_placement(self.scale, place)
 
     def forward(self, x):
         x32 = x.float()
         norm = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
                                  + self.eps)
-        return (norm * self.scale).to(self.dtype)
+        return (norm * gather_param(self.scale, torch.float32)).to(self.dtype)
 
 
 def _seq_parallel_attention(q, k, v, impl: Optional[str], scale: float):
@@ -323,22 +376,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 class Attention(nn.Module):
-    def __init__(self, c: LlamaConfig, device):
+    """GQA attention. Under tp, ``n_heads / tp`` query heads and
+    ``n_kv_heads / tp`` KV heads, split contiguously, so each local query
+    head's KV head is local too and ``repeat_interleave`` keeps JAX's
+    order; ``wo``'s partial sums are all-reduced over tp."""
+
+    def __init__(self, c: LlamaConfig, device, mesh: Optional[Mesh] = None):
         super().__init__()
         self.c = c
+        self.tp = _tp_axis(mesh)
+        tp = self.tp.size if self.tp is not None else 1
+        if c.n_kv_heads % tp or c.n_heads % tp:
+            raise ValueError(f"tp {tp} does not divide n_kv_heads "
+                             f"{c.n_kv_heads} and n_heads {c.n_heads}")
+        self.heads, self.kv_heads = c.n_heads // tp, c.n_kv_heads // tp
         hd = c.dim // c.n_heads
-        self.wq = Dense(c.dim, c.n_heads * hd, c.dtype, device)
-        self.wk = Dense(c.dim, c.n_kv_heads * hd, c.dtype, device)
-        self.wv = Dense(c.dim, c.n_kv_heads * hd, c.dtype, device)
-        self.wo = Dense(c.n_heads * hd, c.dim, c.dtype, device)
+        dense = lambda i, o, name: Dense(i, o, c.dtype, device,
+                                         PARAM_NAMES[name], mesh)
+        self.wq = dense(c.dim, c.n_heads * hd, "wq")
+        self.wk = dense(c.dim, c.n_kv_heads * hd, "wk")
+        self.wv = dense(c.dim, c.n_kv_heads * hd, "wv")
+        self.wo = dense(c.n_heads * hd, c.dim, "wo")
 
     def forward(self, x, positions):
         c = self.c
         hd = c.dim // c.n_heads
         B, T = x.shape[0], x.shape[1]
-        q = self.wq(x).view(B, T, c.n_heads, hd)
-        k = self.wk(x).view(B, T, c.n_kv_heads, hd)
-        v = self.wv(x).view(B, T, c.n_kv_heads, hd)
+        x = copy_to_tp(x, self.tp)
+        q = self.wq(x).view(B, T, self.heads, hd)
+        k = self.wk(x).view(B, T, self.kv_heads, hd)
+        v = self.wv(x).view(B, T, self.kv_heads, hd)
         q = rope(q, positions, c.rope_theta)
         k = rope(k, positions, c.rope_theta)
         rep = c.n_heads // c.n_kv_heads
@@ -356,27 +423,36 @@ class Attention(nn.Module):
             s = torch.where(mask, s, -1e30)
             p = torch.softmax(s, dim=-1).to(c.dtype)
             o = attn_context(p, v)
-        return self.wo(o.reshape(B, T, c.n_heads * hd))
+        return reduce_from_tp(self.wo(o.reshape(B, T, self.heads * hd)),
+                              self.tp)
 
 
 class MLP(nn.Module):
-    def __init__(self, c: LlamaConfig, device):
+    """SwiGLU; under tp ``w1``/``w3`` hold ``hidden / tp`` columns and
+    ``w2``'s partial sums are all-reduced over tp."""
+
+    def __init__(self, c: LlamaConfig, device, mesh: Optional[Mesh] = None):
         super().__init__()
-        self.w1 = Dense(c.dim, c.hidden_dim, c.dtype, device)
-        self.w3 = Dense(c.dim, c.hidden_dim, c.dtype, device)
-        self.w2 = Dense(c.hidden_dim, c.dim, c.dtype, device)
+        self.tp = _tp_axis(mesh)
+        dense = lambda i, o, name: Dense(i, o, c.dtype, device,
+                                         PARAM_NAMES[name], mesh)
+        self.w1 = dense(c.dim, c.hidden_dim, "w1")
+        self.w3 = dense(c.dim, c.hidden_dim, "w3")
+        self.w2 = dense(c.hidden_dim, c.dim, "w2")
 
     def forward(self, x):
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = copy_to_tp(x, self.tp)
+        return reduce_from_tp(self.w2(F.silu(self.w1(x)) * self.w3(x)),
+                              self.tp)
 
 
 class Block(nn.Module):
-    def __init__(self, c: LlamaConfig, device):
+    def __init__(self, c: LlamaConfig, device, mesh: Optional[Mesh] = None):
         super().__init__()
-        self.attn_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
-        self.attn = Attention(c, device)
-        self.mlp_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
-        self.mlp = MLP(c, device)
+        self.attn_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device, mesh)
+        self.attn = Attention(c, device, mesh)
+        self.mlp_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device, mesh)
+        self.mlp = MLP(c, device, mesh)
 
     def forward(self, x, positions):
         x = x + self.attn(self.attn_norm(x), positions)
@@ -395,7 +471,8 @@ def decoder_trunk(model: nn.Module, tokens: torch.Tensor):
     is this rank's shard of the sequence, and its positions start at the
     shard's offset (the GSPMD model sees the global positions)."""
     c = model.cfg
-    x = model.embedding[tokens].to(c.dtype)
+    x = vocab_parallel_embedding(model.embedding, tokens,
+                                 model.tp).to(c.dtype)
     T = tokens.shape[1]
     mesh = get_mesh()
     start = mesh.axis("sp").index * T if mesh is not None \
@@ -412,10 +489,23 @@ def decoder_trunk(model: nn.Module, tokens: torch.Tensor):
             sown.append(extra)
         else:
             x = out
-    x = model.final_norm(x)
+    x = copy_to_tp(model.final_norm(x), model.tp)
     if c.tie_embeddings:
         return head_logits(x, model.embedding, c.dtype), sown
     return model.lm_head(x), sown
+
+
+def _init_block(p: torch.Tensor, fill) -> None:
+    """``fill`` the whole tensor ``p`` is a block of, and keep the block:
+    the values a whole model made from the same generator holds there.
+    The whole tensor lives only for this call."""
+    place = placement_of(p)
+    if place is None or place.local_shape() == place.shape:
+        fill(p)
+        return
+    full = torch.empty(place.shape, device=p.device)
+    fill(full)
+    p.copy_(place.block(full))
 
 
 class Llama(nn.Module):
@@ -423,27 +513,43 @@ class Llama(nn.Module):
     are made on ``device`` (the context's device, else ``"cuda"``) from a
     ``torch.Generator`` seeded with ``seed``, in module order. ``block``
     makes each layer from the config and the device (a subclass passes its
-    own)."""
+    own).
+
+    ``mesh`` (default: the ambient mesh) places the parameters: with an
+    ``fsdp`` or ``tp`` axis of size > 1 each holds this rank's block. The
+    values are the whole model's: each whole tensor is drawn from the one
+    generator in module order, its block kept and the rest freed, so a
+    shard never holds more than one whole tensor at a time."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None, seed: int = 0,
-                 block=None):
+                 block=None, mesh: Optional[Mesh] = None):
         super().__init__()
         device = _default_device(device)
         c = self.cfg = cfg
-        block = Block if block is None else block
-        self.embedding = nn.Parameter(
-            torch.empty(c.vocab_size, c.dim, device=device))
+        mesh = get_mesh() if mesh is None else mesh
+        self.mesh = mesh
+        self.tp = _tp_axis(mesh)
+        block = (functools.partial(Block, mesh=mesh) if block is None
+                 else block)
+        place = placement(mesh, PARAM_NAMES["embedding"],
+                          (c.vocab_size, c.dim))
+        self.embedding = nn.Parameter(torch.empty(place.local_shape(),
+                                                  device=device))
+        set_placement(self.embedding, place)
         self.blocks = nn.ModuleList(block(c, device)
                                     for _ in range(c.n_layers))
-        self.final_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device)
+        self.final_norm = RMSNorm(c.dim, c.norm_eps, c.dtype, device, mesh)
         self.lm_head = (None if c.tie_embeddings else
-                        LMHead(c.dim, c.vocab_size, c.dtype, device))
+                        LMHead(c.dim, c.vocab_size, c.dtype, device,
+                               PARAM_NAMES["lm_head"], mesh))
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
-            self.embedding.normal_(0.0, 0.02, generator=gen)
+            _init_block(self.embedding,
+                        lambda w: w.normal_(0.0, 0.02, generator=gen))
             for mod in self.modules():
                 if isinstance(mod, Dense):
-                    _lecun_normal_(mod.weight, gen)
+                    _init_block(mod.weight,
+                                lambda w: _lecun_normal_(w, gen))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """``tokens`` ``[B, T]`` → f32 logits ``[B, T, V]``

@@ -38,6 +38,7 @@ from torch import nn
 
 from ..parallel.mesh import Axis, axis_size, get_mesh
 from ..parallel.moe import _route
+from ..parallel.sharding import Placement, set_placement
 from .llama import (Attention, Dense, Llama, LlamaConfig, RMSNorm,
                     _lecun_normal_, decoder_trunk)
 
@@ -96,14 +97,11 @@ class MoEMLP(nn.Module):
                                            device=device))
         self.w2 = nn.Parameter(torch.empty(local, c.hidden_dim, c.dim,
                                            device=device))
+        if ep is not None and ep.size > 1:
+            for w in (self.w1, self.w3, self.w2):
+                set_placement(w, Placement((c.n_experts,) + w.shape[1:],
+                                           (ep, None, None)))
         self.load = None
-
-    def sharded_parameters(self):
-        """The expert bank when it holds a slice of an ep axis, else []
-        (``train.gspmd`` reduces these over their replica set)."""
-        if self.ep is None or self.ep.size == 1:
-            return []
-        return [self.w1, self.w3, self.w2]
 
     def experts(self, buf: torch.Tensor) -> torch.Tensor:
         """SwiGLU of each local expert over its rows: ``[E_local, N, D]``
@@ -156,10 +154,16 @@ class Mixtral(Llama):
     def __init__(self, cfg: MixtralConfig, *, device=None, seed: int = 0,
                  mesh=None):
         mesh = get_mesh() if mesh is None else mesh
+        if axis_size(mesh, "fsdp") > 1 or axis_size(mesh, "tp") > 1:
+            raise NotImplementedError(
+                "Mixtral on an fsdp or tp axis of size > 1 (the expert "
+                "bank's mlp -> tp and embed -> fsdp) comes with slice 10 "
+                "(ROADMAP.md, section A)")
         ep = (mesh.axis("ep") if mesh is not None
               and axis_size(mesh, "ep") > 1 else None)
         super().__init__(cfg, device=device, seed=seed,
-                         block=functools.partial(MixtralBlock, ep=ep))
+                         block=functools.partial(MixtralBlock, ep=ep),
+                         mesh=mesh)
         self.sown_losses = None
         E = cfg.n_experts
         with torch.no_grad():

@@ -20,12 +20,18 @@ all three stages on a side stream, so they run during backward as the flat
 all-reduce does, and the result, a new tensor, is copied back into the
 gradient in ``synchronize()``.
 
-A parameter group may carry a ``replica_set`` (a ``ProcessSet``): its
-parameters are sharded so that only those ranks hold the same values (an
-expert bank over the ``ep`` axis, ``parallel/moe.py``). Their gradients are
-summed over that set and divided by the optimizer's rank count, which is
-their Average over the world: the other ranks' contributions reached the
-holders through the model's own exchange. A bucket never mixes groups. A
+A parameter group may carry a ``replica_set`` (a ``ProcessSet``): the
+ranks whose gradients of its parameters are summed, those that hold the
+same block and see different tokens (an expert bank over the ``ep`` axis,
+``parallel/moe.py``; a block over ``fsdp`` or ``tp``,
+``parallel/sharding.py``). The other ranks' contributions reached them
+through the model's own exchanges (the expert all-to-all, fsdp's
+reduce-scatter), and a tp-replicated gradient is equal on every tp rank
+already, so it is not summed over tp. The sum is divided by the group's
+``data_shards``, the number of ranks that see different tokens
+(``sharding.token_shards``), or by default by the optimizer's rank count:
+under tp or pp the world holds more ranks than token shards, and the
+world size would shrink every gradient by tp. A bucket never mixes groups. A
 group whose parameters do not require a gradient on a step (a bank frozen
 by ``train.make_gspmd_deferred_train_step``) is not reduced, and its
 ``.grad`` stays None.
@@ -57,9 +63,11 @@ class _Bucket:
     group's replica set (None: the optimizer's ranks)."""
 
     def __init__(self, params: List[torch.nn.Parameter],
-                 replica_set: Optional[ProcessSet] = None):
+                 replica_set: Optional[ProcessSet] = None,
+                 divisor: Optional[int] = None):
         self.params = params
         self.replica_set = replica_set
+        self.divisor = divisor  # of the replica-set sum; None: the world
         self.pending = len(params)  # gradients not yet ready this step
         self.inflight = None        # (handle, [(param, wire shape, ctx)])
 
@@ -122,6 +130,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         ordered = [(i, p) for i, g in enumerate(self.param_groups)
                    for p in g["params"] if p.requires_grad]
         sets = [g.get("replica_set") for g in self.param_groups]
+        divisors = [g.get("data_shards") for g in self.param_groups]
         if op == _ops.Adasum:
             if any(s is not None for s in sets):
                 raise ValueError("op=Adasum takes no replica_set groups")
@@ -134,7 +143,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                      for i, p in ordered]
             plan = _ops.plan_buckets(sizes, resolve_fusion_threshold_bytes())
             self._buckets = [_Bucket([ordered[j][1] for j in idxs],
-                                     sets[ordered[idxs[0]][0]])
+                                     sets[ordered[idxs[0]][0]],
+                                     divisors[ordered[idxs[0]][0]])
                              for idxs in plan]
         ordered = [p for _, p in ordered]
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
@@ -172,11 +182,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 prescale_factor=self._prescale,
                 postscale_factor=self._postscale)
         else:
-            # Parameters sharded so that only the replica set holds these
-            # values: the others' contributions already reached them, so
-            # their Average over the optimizer's n ranks is the sum over
-            # the replica set divided by n.
-            pre = self._prescale / (self._world if self._op == _ops.Average
+            # The replica set's sum holds every contribution (module
+            # doc); its Average is that sum over the ranks that see
+            # different tokens.
+            divisor = bucket.divisor or self._world
+            pre = self._prescale / (divisor if self._op == _ops.Average
                                     else 1)
             if rs.size() == 1:
                 buf.mul_(pre * self._postscale)

@@ -41,8 +41,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..core import context_api as _ctx
 from .mesh import Axis, Mesh, axis_size
+from .sharding import replica_set
 
 
 class RouterOutput(NamedTuple):
@@ -357,11 +357,4 @@ def expert_replica_set(mesh: Mesh):
     every ep index's set, in order (``new_group`` is collective). None when
     the mesh has no ``ep`` axis of size > 1: every rank holds every
     expert."""
-    if axis_size(mesh, "ep") == 1:
-        return None
-    sizes = [mesh.shape[a] for a in mesh.axis_names]
-    grid = torch.arange(_ctx.size()).reshape(sizes)
-    dim = mesh.axis_names.index("ep")
-    sets = [_ctx.add_process_set(grid.select(dim, e).reshape(-1).tolist())
-            for e in range(mesh.shape["ep"])]
-    return sets[mesh.axis("ep").index]
+    return replica_set(mesh, ("ep",))

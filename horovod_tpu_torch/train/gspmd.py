@@ -1,21 +1,28 @@
-"""LM training over a dp x ep x sp mesh.
+"""LM training over a dp x fsdp x ep x sp x tp mesh.
 
-Counterpart of ``horovod_tpu/train/gspmd.py`` for the ``dp``, ``ep`` and
-``sp`` axes. The JAX step shards the tokens ``[B, T]`` batch over the data
-axes and sequence over ``sp`` and lets XLA insert every collective. Here
-each rank runs its own shard ``[B/(dp ep), T/sp]`` (:func:`shard_tokens`):
-``ep`` is a data axis for the dense layers, and the MoE layers exchange
-their expert buffers over it (``parallel/moe.py``). The model's ring or
-Ulysses attention exchanges K/V over the ``sp`` axis of the ambient mesh,
-and one ``DistributedOptimizer`` makes the gradient: dense parameters
-averaged over the world, each expert slice summed over the ranks that hold
-it (its ``replica_set`` group, :func:`mesh_param_groups`), never across
-``ep``.
+Counterpart of ``horovod_tpu/train/gspmd.py``. The JAX step shards the
+tokens ``[B, T]`` batch over the data axes and sequence over ``sp``, lays
+the parameters out by ``LOGICAL_RULES`` and lets XLA insert every
+collective. Here each rank runs its own shard ``[B/(dp fsdp ep), T/sp]``
+(:func:`shard_tokens`, dp-major as JAX's ``batch -> (dp, fsdp)``) on a
+model built under the mesh, which holds this rank's block of each
+parameter and calls the collectives its placement implies
+(``parallel/sharding.py``: fsdp's gather on use and reduce-scatter of the
+gradient, tp's Megatron all-reduces and vocab-parallel embedding). The
+logits stay split over the vocabulary on tp, and the loss is
+vocab-parallel (``train/losses.py``). ``ep`` is a data axis for the dense
+layers, and the MoE layers exchange their expert buffers over it
+(``parallel/moe.py``). The model's ring or Ulysses attention exchanges K/V
+over the ``sp`` axis of the ambient mesh, on its local heads under tp.
+
+One ``DistributedOptimizer`` makes the gradient: each parameter's
+gradient summed over the ranks that hold the same block and see different
+tokens (its ``replica_set`` group, :func:`mesh_param_groups`), and divided
+by the number of ranks that see different tokens, dp x fsdp x ep x sp.
 
 :func:`make_gspmd_deferred_train_step` is the two-program expert-update
-deferral of ``optimizer.moe_opt.deferred_pair``. The fsdp and tp rules,
-``scan_steps``, ``accum_steps`` and the sentinel belong to later slices
-(ROADMAP.md, section A).
+deferral of ``optimizer.moe_opt.deferred_pair``. ``scan_steps`` and the
+sentinel belong to a later slice (ROADMAP.md, section A).
 """
 
 from __future__ import annotations
@@ -30,16 +37,17 @@ from ..optimizer.distributed import DistributedOptimizer
 from ..optimizer.functions import broadcast_optimizer_state
 from ..optimizer.moe_opt import DeferredPair, Partition, param_groups
 from ..parallel.mesh import Mesh, axis_size, set_mesh, shift
-from ..parallel.moe import expert_replica_set
+from ..parallel.sharding import (DATA_AXES, gradient_axes, holder_axes,
+                                 placement_of, replica_set, token_shards)
 from .dp import TrainState
 from .losses import next_token_loss  # noqa: F401  (the JAX module's loss)
-
-#: The axes the batch is split over, in order.
-DATA_AXES = ("dp", "ep")
+from .losses import vocab_parallel_nll
+from .step_builder import accumulate_gradients
 
 
 def _data_shards(mesh: Mesh):
-    """The number of batch shards (dp x ep) and this rank's, dp-major."""
+    """The number of batch shards (dp x fsdp x ep) and this rank's,
+    dp-major."""
     n, i = 1, 0
     for name in DATA_AXES:
         size = axis_size(mesh, name)
@@ -50,7 +58,8 @@ def _data_shards(mesh: Mesh):
 
 def shard_tokens(tokens: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's shard of the global ``tokens [B, T]``: batch rows by its
-    ``(dp, ep)`` index, dp-major, sequence positions by its ``sp`` index."""
+    ``(dp, fsdp, ep)`` index, dp-major, sequence positions by its ``sp``
+    index."""
     B, T = tokens.shape
     out = tokens
     n, i = _data_shards(mesh)
@@ -68,91 +77,107 @@ def shard_tokens(tokens: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out.contiguous()
 
 
-def sharded_parameters(model: torch.nn.Module) -> List[torch.nn.Parameter]:
-    """The parameters of ``model`` sharded over the ``ep`` axis (the expert
-    banks of its MoE layers, when they hold a slice)."""
-    return [p for m in model.modules()
-            if hasattr(m, "sharded_parameters")
-            for p in m.sharded_parameters()]
-
-
 def mesh_param_groups(model: torch.nn.Module, mesh: Mesh,
                       groups: Optional[List[Dict]] = None) -> List[Dict]:
     """``groups`` (default: one group of all of ``model``'s parameters)
-    with each group's ep-sharded parameters split off into a group of
-    their own that carries the expert ``replica_set``, the ranks with this
-    rank's ep index (``parallel.moe.expert_replica_set``). Without an ep
-    axis the groups come back as they are. Collective on an ep mesh: every
-    rank calls it."""
+    split by the ranks each parameter's gradient is summed over
+    (``sharding.gradient_axes``): a part summed over the whole world keeps
+    the group as it is; any other carries its ``replica_set`` and the
+    divisor ``data_shards`` (``sharding.token_shards``). On a dp x sp mesh
+    the groups come back as they are; on an ep mesh the expert banks go
+    apart; under fsdp or tp every block does. Collective: every rank calls
+    it."""
     if groups is None:
         groups = [{"params": list(model.parameters())}]
-    rs = expert_replica_set(mesh)
-    if rs is None:
-        return groups
-    sharded = {id(p) for p in sharded_parameters(model)}
+    shards = token_shards(mesh)
     out = []
     for g in groups:
-        dense = [p for p in g["params"] if id(p) not in sharded]
-        bank = [p for p in g["params"] if id(p) in sharded]
-        if dense:
-            out.append(dict(g, params=dense))
-        if bank:
-            out.append(dict(g, params=bank, replica_set=rs))
+        parts: Dict[tuple, list] = {}
+        for p in g["params"]:
+            parts.setdefault(gradient_axes(mesh, p), []).append(p)
+        for axes, params in parts.items():
+            rs = replica_set(mesh, axes)
+            out.append(dict(g, params=params) if rs is None else
+                       dict(g, params=params, replica_set=rs,
+                            data_shards=shards))
     return out
+
+
+def _model_axes(mesh: Optional[Mesh]):
+    return {a: axis_size(mesh, a) for a in ("fsdp", "tp")}
 
 
 def _check_optimizer(optimizer, model: torch.nn.Module, mesh: Mesh) -> None:
     """``optimizer`` must be a ``DistributedOptimizer`` over the whole world
-    with ``op=Average``, and hold every ep-sharded parameter in a group
-    whose ``replica_set`` is this rank's expert set."""
+    with ``op=Average`` whose groups are :func:`mesh_param_groups`'s, and
+    ``model`` built under a mesh of the same fsdp and tp sizes."""
     if getattr(optimizer, "_op", None) != _ops.Average \
             or getattr(optimizer, "_process_set", None) is not None:
         raise ValueError("make_gspmd_train_step needs a DistributedOptimizer "
                          "over the whole world with op=Average")
-    world = _ctx.size()
-    covered = 1
-    for name in ("dp", "ep", "sp"):
-        covered *= axis_size(mesh, name)
-    if world != covered:
-        raise ValueError(f"the mesh {mesh.shape} does not cover the world of "
-                         f"{world} ranks with dp, ep and sp")
-    sharded = {id(p) for p in sharded_parameters(model)}
-    if sharded:
-        rs = expert_replica_set(mesh)
-        for g in optimizer.param_groups:
-            for p in g["params"]:
-                if (id(p) in sharded) != (g.get("replica_set") == rs):
-                    raise ValueError(
-                        "on an ep mesh the optimizer's groups must keep the "
-                        "expert banks apart with their replica_set: build "
-                        "them with train.mesh_param_groups")
+    if axis_size(mesh, "pp") > 1:
+        raise ValueError("a pp axis of size > 1 takes "
+                         "make_pipeline_train_step")
+    if _model_axes(getattr(model, "mesh", None)) != _model_axes(mesh):
+        raise ValueError(f"the model was built for fsdp x tp "
+                         f"{_model_axes(getattr(model, 'mesh', None))}, the "
+                         f"mesh has {_model_axes(mesh)}: build it under "
+                         "the mesh (parallel.set_mesh)")
+    shards = token_shards(mesh)
+    for g in optimizer.param_groups:
+        for p in g["params"]:
+            rs = replica_set(mesh, gradient_axes(mesh, p))
+            got = g.get("replica_set")
+            if (got is None) != (rs is None) or (
+                    rs is not None and (got.ranks != rs.ranks
+                                        or g.get("data_shards") != shards)):
+                raise ValueError(
+                    "on this mesh the optimizer's groups must carry each "
+                    "block's replica_set and data_shards: build them with "
+                    "train.mesh_param_groups")
+
+
+def gspmd_shardings(model: torch.nn.Module, optimizer):
+    """The placement (``sharding.Placement``) of each parameter by name,
+    and of each optimizer-state tensor by (parameter name, state key): a
+    state tensor shaped as its parameter's block follows the block; any
+    other (AdamW's step, a factored moment whose rank shrank) is whole
+    (None), as JAX's ``_fit_rank`` replicates it. A model built under a
+    mesh holds its blocks already; this reads them."""
+    named = list(model.named_parameters())
+    params = {n: placement_of(p) for n, p in named}
+    by_id = {id(p): n for n, p in named}
+    state = {}
+    for p, entries in optimizer.state.items():
+        n = by_id[id(p)]
+        for k, v in entries.items():
+            if torch.is_tensor(v):
+                state[(n, k)] = params[n] if v.shape == p.shape else None
+    return params, state
 
 
 def create_gspmd_train_state(model: torch.nn.Module, optimizer,
                              mesh: Mesh) -> TrainState:
     """The train state of the GSPMD steps. ``optimizer`` is a
     ``DistributedOptimizer`` (its groups made with
-    :func:`mesh_param_groups` on an ep mesh), or a transform of
-    ``optimizer.moe_opt`` (a ``deferred_pair``'s ``apply``, a
-    ``moe_adamw``), which is built here into a ``DistributedOptimizer``
-    over a ``MoEOptimizer`` with the mesh's groups.
+    :func:`mesh_param_groups`), or a transform of ``optimizer.moe_opt`` (a
+    ``deferred_pair``'s ``apply``, a ``moe_adamw``), which is built here
+    into a ``DistributedOptimizer`` over a ``MoEOptimizer`` with the mesh's
+    groups.
 
-    Every rank starts from the same values: dense parameters and their
-    optimizer state from rank 0 over the world, each expert slice from the
-    first rank of its replica set (dp index 0) over that set alone, since
-    a world broadcast would overwrite rank e's experts with rank 0's.
-    Collective."""
+    Every rank starts from the same values: each block from the first of
+    the ranks that hold it, over those ranks alone (the whole world for a
+    replicated parameter), and its optimizer state from the first rank of
+    its group's replica set. Collective."""
     if isinstance(optimizer, (dict, Partition)):
         from ..optimizer.moe_opt import MoEOptimizer
         groups = mesh_param_groups(
             model, mesh, param_groups(optimizer, model.named_parameters()))
         optimizer = DistributedOptimizer(
             MoEOptimizer(groups), named_parameters=model.named_parameters())
-    sets = {id(p): g.get("replica_set") for g in optimizer.param_groups
-            for p in g["params"]}
     with torch.no_grad():
         for p in model.parameters():
-            rs = sets.get(id(p))
+            rs = replica_set(mesh, holder_axes(p))
             if rs is None:
                 _ops.broadcast_(p.data, 0)
             elif rs.size() > 1:
@@ -164,7 +189,8 @@ def create_gspmd_train_state(model: torch.nn.Module, optimizer,
 
 
 def _shard_nll_sum(logits, tokens, mesh: Mesh):
-    """Sum of the next-token losses of this shard's targets. The shift
+    """Sum of the next-token losses of this shard's targets, from logits
+    split over the vocabulary on tp (equal on every tp rank). The shift
     crosses the shard boundary: the target of a shard's last position is
     the next ``sp`` shard's first token, which every rank receives from its
     successor (one exchange on the ``sp`` group, the same on every rank);
@@ -176,10 +202,9 @@ def _shard_nll_sum(logits, tokens, mesh: Mesh):
         (nxt,) = shift(axis, (tokens[:, :1],), -1)
         if axis.index < sp - 1:
             targets = torch.cat([targets, nxt], dim=1)
-    logits = logits[:, :targets.shape[1]].float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
-    return (lse - tgt).sum()
+    tp = mesh.axis("tp") if axis_size(mesh, "tp") > 1 else None
+    return vocab_parallel_nll(logits[:, :targets.shape[1]], targets,
+                              tp).sum()
 
 
 def _sown_aux(model: torch.nn.Module) -> Optional[torch.Tensor]:
@@ -193,33 +218,43 @@ def _sown_aux(model: torch.nn.Module) -> Optional[torch.Tensor]:
     return torch.stack(leaves).sum() if leaves else None
 
 
-def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float):
+def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
+               accum_steps: int = 1):
     """The forward, backward and update of one step with ``optimizer``;
     returns the step's loss (module doc of :func:`make_gspmd_train_step`).
     """
-    world = _ctx.size()
+    shards, world = token_shards(mesh), _ctx.size()
+    a = accum_steps
 
     def run(optimizer, tokens: torch.Tensor) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         B, T = tokens.shape
-        shards, _ = _data_shards(mesh)
-        n = (B * shards) * (T * axis_size(mesh, "sp") - 1)
-        with set_mesh(mesh):
-            nll = _shard_nll_sum(model(tokens), tokens, mesh)
+        n = (B * _data_shards(mesh)[0]) * (T * axis_size(mesh, "sp") - 1)
+        parts = []
+
+        def objective(logits, toks):
+            nll = _shard_nll_sum(logits, toks, mesh)
             aux = _sown_aux(model)
-            objective = nll * (world / n)
+            obj = nll * (shards * a / n)
+            parts.append([nll.detach()])
             if aux is not None and aux_weight:
-                objective = objective + aux_weight * aux
-            objective.backward()
+                obj = obj + aux_weight * aux
+                parts[-1].append(aux.detach().float())
+            return obj
+
+        with set_mesh(mesh):
+            if a > 1:
+                accumulate_gradients(model, objective, tokens, tokens, a)
+            else:
+                objective(model(tokens), tokens).backward()
         optimizer.step()
-        parts = [nll.detach()]
-        if aux is not None and aux_weight:
-            parts.append(aux.detach().float())
-        tot = _ops.allreduce(torch.stack(parts), _ops.Sum)
-        loss = tot[0] / n
-        if len(parts) > 1:
-            loss = loss + aux_weight * tot[1] / world
+        tot = _ops.allreduce(torch.stack([sum(x) for x in zip(*parts)]),
+                             _ops.Sum)
+        # every tp rank holds the same sums
+        loss = tot[0] / (n * axis_size(mesh, "tp"))
+        if len(tot) > 1:
+            loss = loss + aux_weight * tot[1] / (world * a)
         return loss
 
     return run
@@ -227,32 +262,46 @@ def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float):
 
 def make_gspmd_train_step(model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer, mesh: Mesh, *,
-                          aux_weight: float = 0.0):
+                          aux_weight: float = 0.0,
+                          accum_steps: Optional[int] = None):
     """The LM train step over ``mesh``: ``step(state, tokens) -> (state,
-    loss)``, ``tokens`` this rank's ``[B/(dp ep), T/sp]`` shard of the
-    global batch (:func:`shard_tokens`).
+    loss)``, ``tokens`` this rank's ``[B/(dp fsdp ep), T/sp]`` shard of
+    the global batch (:func:`shard_tokens`).
 
     The objective is the mean over the ranks of each rank's mean
     next-token loss plus ``aux_weight`` x the sum of its layers' router aux
     losses (a Mixtral sows them; a Llama none), which is the JAX step's
     loss in a world of one. Each rank routes its own tokens (ROADMAP.md,
-    section C). With N = B (T - 1) targets over the global batch and W =
-    dp x ep x sp ranks, each rank back-propagates ``(W / N) x`` its shard's
-    summed next-token loss plus ``aux_weight x`` its aux sum; the world
-    Average of ``DistributedOptimizer`` then gives every replicated
-    parameter the objective's gradient, and the replica-set sum over W
-    gives each expert slice its own (the all-to-all's backward has already
-    brought the other ep ranks' cotangents to it). The returned loss is
-    the objective.
+    section C). With N = B (T - 1) targets over the global batch and S =
+    dp x fsdp x ep x sp ranks that see different tokens, each rank
+    back-propagates ``(S / N) x`` its shard's summed next-token loss plus
+    ``aux_weight x`` its aux sum; ``DistributedOptimizer`` sums each
+    gradient over its replica set and divides by S (the world Average
+    where the set is the world), which gives every parameter the
+    objective's gradient: fsdp's reduce-scatter and the all-to-all's
+    backward have already brought the other shards' contributions to a
+    block. The returned loss is the objective.
+
+    ``accum_steps = a`` runs this rank's shard as ``a`` microbatches
+    (``step_builder.accumulate_gradients``), each back-propagating ``a S /
+    N`` times its summed loss; the optimizer must be made with
+    ``backward_passes_per_step = a``, so it reduces once, after the last,
+    and divides by ``a``: the mean of the microbatches' mean losses, as
+    JAX's accumulation takes it.
 
     ``optimizer`` is a ``DistributedOptimizer`` over the whole world with
-    ``op=Average``; on an ep mesh its groups keep the expert banks apart
-    (:func:`mesh_param_groups`). The ring's point-to-point exchanges and
-    the MoE all-to-alls, the world bucket all-reduces and the expert
-    reductions over the replica sets are posted during backward in the
-    graph's order, the same on every rank."""
+    ``op=Average`` and the groups of :func:`mesh_param_groups`. The ring's
+    point-to-point exchanges, the MoE all-to-alls, fsdp's reduce-scatters,
+    tp's all-reduces and the bucket reductions are posted during backward
+    in the graph's order, the same on every rank."""
     _check_optimizer(optimizer, model, mesh)
-    run = _step_body(model, mesh, aux_weight)
+    a = 1 if accum_steps is None else int(accum_steps)
+    passes = getattr(optimizer, "backward_passes_per_step", 1)
+    if a != passes:
+        raise ValueError(
+            f"accum_steps={a} needs an optimizer made with "
+            f"backward_passes_per_step={a} (it has {passes})")
+    run = _step_body(model, mesh, aux_weight, a)
 
     def step(state: TrainState, tokens: torch.Tensor):
         return state._replace(step=state.step + 1), run(optimizer, tokens)
@@ -278,6 +327,11 @@ def make_gspmd_deferred_train_step(model: torch.nn.Module, pair: DeferredPair,
     the dead dW products and aliases the donated bank. The apply step is a
     normal step with the bank's ``every``-scaled update of the current
     gradient."""
+    if _model_axes(mesh) != _model_axes(None):
+        raise NotImplementedError(
+            "the deferred expert-update step on an fsdp or tp axis of size "
+            "> 1 comes with slice 10, with Mixtral's fsdp and tp (ROADMAP.md,"
+            " section A)")
     run = _step_body(model, mesh, aux_weight)
     counter = {"n": None}
 

@@ -1,6 +1,8 @@
-"""Gradient accumulation over microbatches.
+"""Gradient accumulation over microbatches, and the pipeline-parallel step.
 
-Counterpart of ``horovod_tpu/train/step_builder.py::accumulate_gradients``.
+Counterpart of ``horovod_tpu/train/step_builder.py::accumulate_gradients``
+and of its ``PipelineTrainState``, ``create_pipeline_train_state`` and
+``make_pipeline_train_step`` (at the end of this module).
 The JAX package accumulates inside one compiled step with a ``lax.scan``;
 here the microbatches run one after another, each with its own forward and
 backward, and ``p.grad`` accumulates their gradients.
@@ -14,7 +16,7 @@ per step, of the mean gradient.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -60,3 +62,69 @@ def accumulate_gradients(model: torch.nn.Module,
         loss = loss.detach().float()
         total = loss if total is None else total + loss
     return total / a
+
+
+# ------------------------------------------------- pipeline-parallel step
+
+class PipelineTrainState(NamedTuple):
+    step: int
+    stage_params: Any  # this rank's stage (a module, or tensors)
+    optimizer: torch.optim.Optimizer  # over this rank's stage alone
+
+
+def create_pipeline_train_state(stage_params,
+                                optimizer) -> PipelineTrainState:
+    """The pipeline state of this rank: its stage's parameters and an
+    optimizer over them. JAX stacks every stage's parameters ``[n_stages,
+    ...]`` and vmaps the optimizer over that dim, so each stage's moments
+    live with its parameters; one process holds one stage here, and its
+    optimizer holds that stage's state alone."""
+    return PipelineTrainState(0, stage_params, optimizer)
+
+
+def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
+                             optimizer, *, mesh, axis_name: str = "pp",
+                             dp_axis_name: Optional[str] = None,
+                             schedule: str = "interleaved", pair=None):
+    """Pipeline-parallel train step over ``parallel/pipeline.py``:
+    ``step(state, x_microbatches, targets) -> (state, loss)``.
+
+    ``schedule="interleaved"`` (alias ``"1f1b"``) is the hand-scheduled
+    1F1B; ``"gpipe"`` is autograd through the ticks and takes a
+    ``dp_axis_name`` on a (dp, pp) mesh, over which the stage gradients
+    and the loss are averaged. The microbatches ``[M, mb, ...]`` are this
+    rank's: the same on every rank of the pp axis (stage 0 reads them, the
+    last stage's targets score them), this rank's dp shard of the batch on
+    a dp axis. ``optimizer`` is a torch optimizer over this rank's stage
+    parameters (the state's). ``pair=`` cadence is not ported for
+    pipelines (ROADMAP.md, section A)."""
+    from ..parallel.pipeline import (pipeline_1f1b_value_and_grad,
+                                     pipeline_value_and_grad,
+                                     stage_parameters)
+    if pair is not None:
+        raise NotImplementedError("pair= cadence with pipelines is queued "
+                                  "for a later slice (ROADMAP.md, section A)")
+    if schedule in ("interleaved", "1f1b"):
+        if dp_axis_name is not None:
+            raise ValueError(
+                "the 1F1B schedule has no dp seam yet — use "
+                "schedule='gpipe' with dp_axis_name, or drop the dp axis")
+        vg = pipeline_1f1b_value_and_grad(stage_fn, loss_fn,
+                                          mesh.axis(axis_name))
+    elif schedule == "gpipe":
+        dp = mesh.axis(dp_axis_name) if dp_axis_name else None
+        vg = pipeline_value_and_grad(stage_fn, loss_fn, mesh.axis(axis_name),
+                                     dp_axis=dp)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}: expected "
+                         "'interleaved' (alias '1f1b') or 'gpipe'")
+
+    def step(state: PipelineTrainState, x_microbatches, targets):
+        loss, grads = vg(state.stage_params, x_microbatches, targets)
+        for p, g in zip(stage_parameters(state.stage_params), grads):
+            p.grad = g
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return state._replace(step=state.step + 1), loss
+
+    return step

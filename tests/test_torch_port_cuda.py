@@ -944,3 +944,102 @@ def test_sync_batch_norm_resnet_across_gpus_matches_one_process(cuda,
     for name in _params(single):
         np.testing.assert_allclose(ranks[0][name], single[name], rtol=1e-5,
                                    atol=1e-5, err_msg=name)
+
+
+_SHARDING_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import create_mesh, sharding
+    from horovod_tpu_torch.train import vocab_parallel_nll
+
+    out_dir, device, name = sys.argv[1], sys.argv[2], sys.argv[3]
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    # The vocab-parallel loss against the whole-tensor one, on a tp axis.
+    tp = create_mesh({"tp": n}).axis("tp")
+    N, V = 4096, 32064
+    logits = torch.randn((N, V), generator=gen, device=dev) * 4
+    targets = torch.randint(0, V, (N,), generator=gen, device=dev)
+    w = torch.rand((N,), generator=gen, device=dev)
+    whole = logits.clone().requires_grad_()
+    ref = vocab_parallel_nll(whole, targets)
+    (ref * w).sum().backward()
+    part = logits.chunk(n, dim=1)[rank].clone().requires_grad_()
+    sharding.reset_counts()
+    got = vocab_parallel_nll(part, targets, tp)
+    (got * w).sum().backward()
+    out["loss_all_reduces"] = sharding.counts["tp_all_reduce"]
+    out["nll_err"] = ((got - ref).abs() / (1e-5 * ref.abs())).max().item()
+    want = whole.grad.chunk(n, dim=1)[rank]
+    out["grad_err"] = ((part.grad - want).abs().max()
+                       / (4e-6 * want.abs().max())).item()
+
+    # The fsdp gather (bf16 forward) and reduce-scatter (f32 backward), on
+    # both dims of a [out, in] weight, against the whole weight.
+    fsdp = create_mesh({"fsdp": n})
+    W = torch.randn((1024, 4096), generator=gen, device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(1 + r) for r in range(n)]
+    G = [torch.randn(W.shape, generator=g, device=dev) for g in gens]
+    res = []
+    for names in (("mlp", "embed"), ("embed", "mlp")):
+        place = sharding.placement(fsdp, names, W.shape)
+        shard = torch.nn.Parameter(place.block(W).clone())
+        sharding.set_placement(shard, place)
+        sharding.reset_counts()
+        full = sharding.gather_param(shard, torch.bfloat16)
+        (full.float() * G[rank]).sum().backward()
+        want = place.block(sum(g.to(torch.bfloat16).float() for g in G))
+        res.append([bool(torch.equal(full, W.to(torch.bfloat16))),
+                    bool(torch.equal(shard.grad, want)),
+                    sharding.counts["all_gather"],
+                    sharding.counts["reduce_scatter"]])
+    out["fsdp"] = res
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+    hvd.shutdown()
+""")
+
+
+_SHARDING_RUNS: dict = {}
+
+
+def sharding_world(tmp_path, device="cuda"):
+    """Each rank's results of ``_SHARDING_WORKER`` in a world of 2."""
+    if device == "cuda" and torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    if device not in _SHARDING_RUNS:
+        ranks = run_world(str(tmp_path), 2, device, "sharding",
+                          _SHARDING_WORKER)
+        _SHARDING_RUNS[device] = [json.loads(str(r["result"]))
+                                  for r in ranks]
+    return _SHARDING_RUNS[device]
+
+
+def test_vocab_parallel_loss_across_gpus(cuda, tmp_path):
+    """``lse - target logit`` over two vocab halves (max, then the sum of
+    exponentials and the target logit in one all-reduce) within 1e-5
+    relative of the whole-tensor loss per position, its gradient (``softmax
+    - onehot`` on the local half) within 4e-6 of the largest element of the
+    whole gradient: both sum the same f32 terms in different orders, and
+    an lse near 14 that differs in its last bit (2^-23 x 14 = 1.7e-6)
+    moves every softmax term by that share; 4e-6 allows two such bits."""
+    for r in sharding_world(tmp_path):
+        assert r["loss_all_reduces"] == 2
+        assert r["nll_err"] <= 1.0, r
+        assert r["grad_err"] <= 1.0, r
+
+
+def test_fsdp_gather_and_reduce_scatter_across_gpus(cuda, tmp_path):
+    """The gathered bf16 weight equals the whole weight cast to bf16, on
+    either sharded dim; the shard's gradient equals its block of the sum of
+    both ranks' f32 cotangents (a sum of two terms rounds the same either
+    way): one all-gather and one reduce-scatter each."""
+    for r in sharding_world(tmp_path):
+        assert r["fsdp"] == [[True, True, 1, 1]] * 2

@@ -202,8 +202,8 @@ def test_mesh_is_row_major_with_sp_innermost(world):
 
 
 def test_mesh_errors():
-    """Axes that do not cover the world raise as JAX's ``create_mesh`` does;
-    an axis of a later slice with size > 1 raises ``NotImplementedError``."""
+    """Axes that do not cover the world raise as JAX's ``create_mesh`` does,
+    whichever axis it is."""
     thvd.init(device="cpu")
     try:
         with pytest.raises(ValueError, match="require 2 devices, have 1"):
@@ -219,16 +219,23 @@ def test_mesh_errors():
 
 
 def test_later_axes_raise_not_implemented(monkeypatch):
-    """The check runs before any group is made, so a world of one can show
-    it: a ``tp`` of 2 names the slice that ports it."""
+    """``tp`` and ``fsdp`` build now (the model-parallel slice); what waits
+    for a later slice still raises: Mixtral on a tp or fsdp mesh names
+    slice 10. A world of one shows it: the size is patched and
+    ``new_group`` records the rows instead of making them."""
+    import torch.distributed as dist
     from horovod_tpu_torch.core import context_api
+    from horovod_tpu_torch.models.mixtral import Mixtral, mixtral_tiny
     thvd.init(device="cpu")
     try:
         monkeypatch.setattr(context_api, "size", lambda: 4)
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            create_mesh({"dp": 2, "tp": 2})
-        with pytest.raises(NotImplementedError, match="FSDP"):
-            create_mesh({"fsdp": 4})
+        monkeypatch.setattr(dist, "new_group", lambda ranks: tuple(ranks))
+        assert create_mesh({"dp": 2, "tp": 2}).axis("tp").ranks == (0, 1)
+        assert create_mesh({"fsdp": 4}).axis("fsdp").ranks == (0, 1, 2, 3)
+        for axes in ({"dp": 2, "tp": 2}, {"fsdp": 4}):
+            with pytest.raises(NotImplementedError, match="slice 10"):
+                Mixtral(mixtral_tiny(), device="cpu",
+                        mesh=create_mesh(axes))
     finally:
         monkeypatch.undo()
         thvd.shutdown()

@@ -47,7 +47,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    "train/step_builder.py", "train/gspmd.py",
                    "parallel/mesh.py", "parallel/ring.py",
                    "parallel/ulysses.py", "parallel/moe.py",
-                   "models/mixtral.py", "optimizer/moe_opt.py"):
+                   "models/mixtral.py", "optimizer/moe_opt.py",
+                   "parallel/sharding.py", "parallel/pipeline.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -327,12 +328,14 @@ def test_declared_layout_must_cover_the_world(monkeypatch):
 
 
 def test_mesh_builds_ep_and_later_axes_still_raise(monkeypatch):
-    """``ep`` is built like dp and sp, in ``AXIS_ORDER``; fsdp, tp and pp
-    of size > 1 still raise and name the slice that ports them. A world of
-    one stands in for four: the size is patched and ``new_group`` records
-    the rows each rank must make."""
+    """``ep`` is built like dp and sp, in ``AXIS_ORDER``, and so now are
+    fsdp, tp and pp, which no longer raise: each axis of size > 1 gets its
+    rows, made on every rank in one order. ``create_hybrid_mesh`` lays the
+    DCN factors across nodes, outermost. A world of one stands in for
+    four: the size (and for the hybrid mesh the two-level layout) is
+    patched and ``new_group`` records the rows each rank must make."""
     from horovod_tpu_torch.core import context_api
-    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.parallel import create_hybrid_mesh, create_mesh
     thvd.init(device="cpu")
     made = []
     try:
@@ -346,10 +349,22 @@ def test_mesh_builds_ep_and_later_axes_still_raise(monkeypatch):
         assert mesh.axis("dp").ranks == (0, 2)
         assert mesh.axis("ep").group == (0, 1)
         assert made == [(0, 2), (1, 3), (0, 1), (2, 3)]
-        for axis, slice_name in (("fsdp", "FSDP"), ("tp", "tensor-parallel"),
-                                 ("pp", "pipeline")):
-            with pytest.raises(NotImplementedError, match=slice_name):
-                create_mesh({"dp": 2, axis: 2})
+        for axis in ("fsdp", "tp", "pp"):
+            made.clear()
+            mesh = create_mesh({"dp": 2, axis: 2})
+            inner = axis != "pp"  # pp is outermost, tp and fsdp inside dp
+            assert mesh.axis(axis).ranks == ((0, 1) if inner else (0, 2))
+            assert mesh.axis(axis).group == mesh.axis(axis).ranks
+            assert len(made) == 4
+        monkeypatch.setattr(context_api, "cross_size", lambda: 2)
+        monkeypatch.setattr(context_api, "local_size", lambda: 2)
+        made.clear()
+        mesh = create_hybrid_mesh({"tp": 2}, {"dp": 2})
+        assert mesh.axis_names == ("dp", "tp")
+        assert mesh.axis("tp").ranks == (0, 1)  # within node 0
+        assert mesh.axis("dp").ranks == (0, 2)
+        with pytest.raises(ValueError, match="needs 2 nodes of 4 ranks"):
+            create_hybrid_mesh({"tp": 4}, {"dp": 2})
     finally:
         monkeypatch.undo()
         thvd.shutdown()
