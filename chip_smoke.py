@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
 and of its Adasum, hierarchical, collective, context-parallel,
-expert-parallel, model-parallel and pipeline paths across up to four cards
-where the machine has them.
+expert-parallel, model-parallel (Llama, Mixtral, BERT) and pipeline paths
+across up to four cards where the machine has them.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and the script exits nonzero:
+Phases, one line each; any failure raises and the script exits nonzero.
+They run in this order: 1 and 2; the one-card phases (5-12, 14, 16) on
+card 0; then the multi-card phases (3, 4, 13, 15, 17-20), each printing its
+seconds, and the whole script's. On four cards or more, the 2-rank worlds
+of phases 18 and 19 run on cards 2 and 3 beside the one-card phases
+(``LANE_PHASES``), and phases 13, 15 and 17 start their 4-rank world alone:
+it splits every axis their 2-rank world splits (``FOUR_ALONE``).
 
 1. device  — requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -25,12 +31,11 @@ Phases, one line each; any failure raises and the script exits nonzero:
    losses, parameters bit-identical across the ranks, and rank 0's first
    combined gradient within tolerance of the plain butterfly of the
    gathered local gradients. Prints the step time and the third step's
-   device time by kernel group. It runs before this process allocates
-   anything on the cards.
+   device time by kernel group.
 4. collectives — the hierarchical all-reduce and the rest of the
    collective surface; like phase 3 it needs two ranks, prints that on one
    card and runs nothing, and otherwise starts its own NCCL world of n
-   ranks before this process allocates anything, declared 2 cross x n/2
+   ranks, declared 2 cross x n/2
    intra (``HOROVOD_LOCAL_SIZE``: 2 x 2 on 4 cards, 2 x 1 on 2) with
    ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``.
    (a) ``DistributedOptimizer(AdamW)`` on the model of phase 7, a
@@ -113,16 +118,16 @@ Phases, one line each; any failure raises and the script exits nonzero:
    10), in bf16 and again in f32, at the tolerances below; times each beside
    its bound, its plain version and ``F.scaled_dot_product_attention`` with
    the same additive mask, and names the SDPA back end that mask selects.
+   Then the same at H=8, the heads a rank holds at tp 2 (phase 20).
 12. crossover — one BERT-Large layer's attention (B=8, H=16, D=64, bf16, a
    ragged mask), forward and backward, through the flash kernels and through
    the materialised softmax of ``models/bert.py``, at T = 128, 256, 512 and
    1024: the shortest T from which flash is faster (``models/_flash.py``'s
    ``AUTO_MIN_SEQ``).
 13. context — context-parallel training (``attention_impl`` "ring" and
-   "ulysses", ``make_gspmd_train_step``); it runs right after phase 4, before
-   this process allocates anything on the cards, and like it needs two
-   ranks: on one card it prints that and runs nothing. With 2 or more cards
-   it starts an NCCL world of 2 (one of 4 too on 4 cards) and trains the
+   "ulysses", ``make_gspmd_train_step``); like phase 4 it needs two
+   ranks: on one card it prints that and runs nothing. On 2 cards it
+   starts an NCCL world of 2, on 4 one of 4, and trains the
    Llama-3-8B-width model cut to 2 layers, at its full T = 8192 tokens a
    sequence, on ``{"sp": n}`` and, on 4 cards, ``{"dp": 2, "sp": 2}``: one
    sequence a dp row, remat "dots" (the default), AdamW, 4 steps, the last
@@ -158,11 +163,10 @@ Phases, one line each; any failure raises and the script exits nonzero:
    at the tolerances below, each timed beside its bound, its plain version
    and ``F.scaled_dot_product_attention``.
 
-15. mixtral-ep — expert-parallel Mixtral training; it runs right after
-   phase 13, before this process allocates anything on the cards, and
-   needs two ranks: on one card it prints that and runs nothing. With 2 or
-   more cards it starts an NCCL world of 2 (``{"ep": 2}``) and on 4 cards
-   one of 4 too (``{"ep": 4}``, ``{"dp": 2, "ep": 2}``). The model is
+15. mixtral-ep — expert-parallel Mixtral training; it needs two ranks: on
+   one card it prints that and runs nothing. On 2 cards it starts an NCCL
+   world of 2 (``{"ep": 2}``), on 4 one of 4 (``{"ep": 4}``, ``{"dp": 2,
+   "ep": 2}``). The model is
    ``mixtral_8x7b()`` cut to 2 layers (vocab 32000, dim 4096, 32 / 8 heads
    of 128, hidden 14336, 8 experts top-2, rope theta 1e6), remat "dots",
    each rank with its own 2 x 2048 tokens, AdamW(1e-4) through
@@ -194,10 +198,9 @@ Phases, one line each; any failure raises and the script exits nonzero:
    op of the MoE layers alone (the expert ``bmm`` s, routing and gathers,
    the exchange: ``moe_op_events``).
 
-17. model-parallel — fsdp and tp (``parallel/sharding.py``); it runs right
-   after phase 15, before this process allocates anything on the cards, and
-   needs two ranks: on one card it prints that and runs nothing. With 2 or
-   more cards it starts an NCCL world of 2 and on 4 cards one of 4.
+17. model-parallel — fsdp and tp (``parallel/sharding.py``); it needs two
+   ranks: on one card it prints that and runs nothing. On 2 cards it
+   starts an NCCL world of 2, on 4 one of 4.
    (a) Parity at 2 layers of the Llama-3-8B widths, remat dots, 2 x 2048
    tokens a data shard, AdamW(1e-4), one step on each mesh: ``{"fsdp": 2}``
    and ``{"tp": 2}`` on 2 cards; ``{"fsdp": 4}``, ``{"dp": 2, "tp": 2}``,
@@ -230,7 +233,48 @@ Phases, one line each; any failure raises and the script exits nonzero:
    B2 and B3 once. Prints the step time and the measured bubble, 1 - M t /
    step with t one microbatch's stage forward and backward (1F1B: plus
    its forward), against (n - 1) / (M + n - 1) for GPipe and 2 (n - 1) /
-   (M + 2 (n - 1)) for 1F1B. Phases 17 and 18 print their seconds.
+   (M + 2 (n - 1)) for 1F1B. On ``{"pp": 2}`` it then runs ``pair=``:
+   ``deferred_pair(1e-4, every=2)`` naming each stage's MLP, 4 steps of
+   GPipe and of 1F1B, whose skip steps must leave the MLP bit-unchanged
+   and without a gradient and whose apply steps must move it, at the same
+   B1-B3 launches. Phases 17 to 20 print their seconds.
+19. mixtral-mp — Mixtral on fsdp, ep and tp (``models/mixtral.py``: each
+   rank holds ``[E/ep, D/fsdp, M/tp]`` of each bank); like phase 17 it
+   needs two ranks. (a) Parity at 2 layers of the Mixtral-8x7B widths in
+   bf16 with no drops (capacity factor E / top_k) and no aux loss, remat
+   dots, one AdamW(1e-4) step on ``{"fsdp": 2}`` and ``{"tp": 2}`` (a
+   world of 2) and ``{"fsdp": 2, "ep": 2}`` and ``{"ep": 2, "tp": 2}`` (a
+   world of 4), against the whole model on each rank's card over the
+   global batch, with phase 17's gates, the collectives and B1-B3 that
+   ``mixtral_mp_expected`` derives, and the tp ranks of each row routing
+   alike (``router_load``). The fsdp and ep cells route by their own
+   router; the tp cells replay the whole model's plan (``routing_plan``:
+   the tp partial sums round the router's input apart from the whole
+   model's, which flips near-tied choices). Each cell prints how many of
+   its token routings (tokens x layers, every data shard) its own router
+   chose apart from the whole model's. (b) On 4
+   cards, ``mixtral_8x7b()`` at 6 of its 32 layers (full depth does not
+   fit 4 cards), 2 x 2048 tokens a data shard, aux weight 0.02, 4 steps of
+   ``moe_adamw("adamw")`` on ``{"fsdp": 2, "ep": 2}`` and on ``{"ep": 2,
+   "tp": 2}`` (the last profiled on rank 0), then 4 of
+   ``make_gspmd_deferred_train_step(deferred_pair(every=2))`` on
+   ``{"fsdp": 2, "ep": 2}``: finite losses (falling in the first two),
+   the expected collectives every step (the skip steps post no bank
+   reduce-scatter), blocks bit-identical on their holders, skip steps
+   leaving the banks bit-unchanged without a gradient and apply steps
+   moving them. Prints the step time, tokens/s/GPU, MFU by active
+   parameters (``mixtral_active_flops``: top-2 of 8 experts), the worst
+   rank's peak memory and the profiled step's device time by group.
+20. bert-mp — BERT on dp, fsdp and tp (``models/bert.py``,
+   ``train.losses.mlm_loss_sums``); like phase 17 it needs two ranks. On
+   ``{"dp": 2, "tp": 2}`` and ``{"fsdp": 4}`` (4 cards; ``{"tp": 2}`` and
+   ``{"fsdp": 2}`` on 2), 8 x 512 tokens a data shard with 15 % masked,
+   remat off, AdamW(1e-4): parity at 2 layers against the whole model over
+   the global batch and its global masked count (phase 17's gates; the key
+   projection's bias, whose gradient is 0 in exact arithmetic, reported
+   apart), then BERT-Large at its 24 layers for 4 steps, the last
+   profiled, with the collectives of ``bert_mp_expected`` and B1-B3 once a
+   layer a step on the ``16 / tp`` local heads. Prints the same rates.
 
 After phase 5, B1, B2 and B3 are also held and timed at the tp-local head
 counts of the main shape (16 heads at tp 2, 8 at tp 4: ``tp-kernels``).
@@ -245,8 +289,11 @@ its three checked steps for B1-B3 and its ``hierarchical_adasum`` call for
 B4 and B5), ``longctx`` (phase 14, every arm's steps), ``context``
 (phase 13, rank 0's checked steps), ``mixtral`` (phase 16, its exact-AdamW
 steps), ``mixtral-ep`` (phase 15, rank 0's steps), ``model-parallel``
-(phase 17, rank 0's parity steps at 2 layers) and ``pipeline`` (phase 18,
-rank 0's steps).
+(phase 17, rank 0's parity steps at 2 layers), ``pipeline`` (phase 18,
+rank 0's steps before ``pair=``), ``mixtral-mp`` (phase 19, rank 0's
+second step on ``{"fsdp": 2, "ep": 2}`` at 6 layers; on 2 cards its parity
+steps) and ``bert-mp`` (phase 20, rank 0's second step of its first
+24-layer run).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -293,6 +340,7 @@ import time
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, SXM, 700 W
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
+T_START = time.perf_counter()
 FA_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention.cu"
 #: The bf16 B1, B2 and B3, which the main path runs, on the tensor cores.
 SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_attention_sm90.cuh"
@@ -833,11 +881,72 @@ def adasum_worker(out_dir):
     return 0
 
 
+#: On four cards or more, the phases whose 4-rank world splits every axis
+#: their 2-rank world splits run the 4-rank world alone: ``context`` (sp
+#: on ``{"dp": 2, "sp": 2}``), ``mixtral-ep`` (ep on ``{"dp": 2, "ep":
+#: 2}``) and ``model-parallel`` (fsdp and tp on ``{"fsdp": 2, "tp": 2}``).
+FOUR_ALONE = ("context", "mixtral-ep", "model-parallel")
+#: On four cards or more, the 2-rank worlds of these phases run on cards 2
+#: and 3 while this process runs the one-card phases on card 0
+#: (:func:`prefetch_worlds`).
+LANE_PHASES = ("pipeline", "mixtral-mp")
+#: Worlds started ahead of their phase: phase -> slot (prefetch_worlds).
+_PREFETCHED = {}
+
+
+def world_sizes(phase, cards):
+    """The worlds a multi-rank phase starts on ``cards`` cards (2 or
+    more): 2 ranks, and on four cards 4 too (4 alone for FOUR_ALONE)."""
+    if cards < 4:
+        return [2]
+    return [4] if phase in FOUR_ALONE else [2, 4]
+
+
+def prefetch_worlds(phases):
+    """Start the 2-rank worlds of ``phases``, one after another, on cards 2
+    and 3, in a thread of their own; ``run_world(phase, 2)`` then waits
+    for its world and returns its ranks (or raises its error). Returns the
+    thread: join it before any world takes those cards again. It is not a
+    daemon, so an error in this process waits for its worlds to stop."""
+    import threading
+    slots = {phase: {"done": threading.Event()} for phase in phases}
+    _PREFETCHED.update(slots)
+
+    def lane():
+        for phase, slot in slots.items():
+            t0 = time.perf_counter()
+            try:
+                slot["ranks"] = _run_world(
+                    phase, 2, {"CUDA_VISIBLE_DEVICES": "2,3"})
+            except Exception as e:  # raised by the phase that reads it
+                slot["error"] = e
+            slot["seconds"] = time.perf_counter() - t0
+            slot["done"].set()
+
+    thread = threading.Thread(target=lane, name="two-rank worlds")
+    thread.start()
+    return thread
+
+
 def run_world(phase, n, env=None, limit=900):
     """Run ``--<phase>-worker`` in an NCCL world of n processes, one card
     each, with the port's ``HOROVOD_*`` environment and ``env``; return each
     rank's ``rank<r>.json``. A rank that fails fails the phase, with the end
-    of its log; every process is stopped before this returns."""
+    of its log; every process is stopped before this returns. A world that
+    :func:`prefetch_worlds` started is waited for instead."""
+    slot = _PREFETCHED.pop(phase, None) if n == 2 else None
+    if slot is None:
+        return _run_world(phase, n, env, limit)
+    slot["done"].wait()
+    if "error" in slot:
+        raise slot["error"]
+    log(phase, f"2 ranks, on cards 2 and 3 beside the one-card phases: "
+               f"{slot['seconds']:.1f} s")
+    return slot["ranks"]
+
+
+def _run_world(phase, n, env=None, limit=900):
+    """:func:`run_world`'s world."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -1493,7 +1602,7 @@ def context_phase(torch, card):
                        "the phase runs nothing")
         return zeros
     total = dict(zeros)
-    for n in [2] + ([4] if cards >= 4 else []):
+    for n in world_sizes("context", cards):
         env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
                if n < cards else None)
         ranks = run_world("context", n, env)
@@ -1876,27 +1985,35 @@ def bert_phase(torch, card):
 def bert_kernels_phase(torch, card, fmt):
     """The ``bert-kernels`` phase (module doc)."""
     from horovod_tpu_torch.ops import flash_attention as fa
-    B, T, H, D = 8, 512, 16, 64
+    B, T, D = 8, 512, 64
     lengths = [T - T // 16 * i for i in range(B)]
-    shape = dict(B=B, Tq=T, Tk=T, H=H, D=D, causal=False, lengths=lengths,
-                 seed=3)
-    errs, args, kw = kernel_case(fa, torch, dtype=torch.bfloat16, **shape)
-    f32_errs, _, _ = kernel_case(fa, torch, dtype=torch.float32, **shape)
-    log("bert-kernels", f"agree with plain at B={B}, T={T}, H={H}, D={D}, "
-                        f"not causal, real lengths {lengths}: bf16 "
-                        f"{fmt(errs)}; f32 {fmt(f32_errs)}")
-    ms, library, sdpa = time_kernels(fa, torch, args, kw)
-    backend = sdpa_backend(torch, *sdpa)
-    for name in fa.KERNELS:
-        bnd = bound(name, B, H, T, T, D, False, 2)
-        tflops = fa_flops(name, B, H, T, T, D, False) / (
-            ms[name][0] * 1e-3) / 1e12
-        log("bert-kernels", f"{name}: {ms[name][0]:.4f} ms, {tflops:.1f} "
-                            f"TFLOP/s, {bnd[0] / ms[name][0]:.1%} of its "
-                            f"bound ({bnd[0]:.4f} ms by {bnd[1]}); plain "
-                            f"{ms[name][1]:.3f} ms; SDPA with the mask "
-                            f"{library[name]:.4f} ms; on {card}")
-    log("bert-kernels", f"SDPA with an additive bf16 mask runs {backend}")
+    # all 16 heads, then the 8 a rank holds at tp 2 (bert-mp)
+    for H in (16, 8):
+        shape = dict(B=B, Tq=T, Tk=T, H=H, D=D, causal=False,
+                     lengths=lengths, seed=3)
+        errs, args, kw = kernel_case(fa, torch, dtype=torch.bfloat16,
+                                     **shape)
+        f32_errs, _, _ = kernel_case(fa, torch, dtype=torch.float32,
+                                     **shape)
+        log("bert-kernels", f"agree with plain at B={B}, T={T}, H={H}, "
+                            f"D={D}, not causal, real lengths {lengths}: "
+                            f"bf16 {fmt(errs)}; f32 {fmt(f32_errs)}")
+        ms, library, sdpa = time_kernels(fa, torch, args, kw)
+        backend = sdpa_backend(torch, *sdpa)
+        for name in fa.KERNELS:
+            bnd = bound(name, B, H, T, T, D, False, 2)
+            tflops = fa_flops(name, B, H, T, T, D, False) / (
+                ms[name][0] * 1e-3) / 1e12
+            log("bert-kernels", f"{name} at H={H}: {ms[name][0]:.4f} ms, "
+                                f"{tflops:.1f} TFLOP/s, "
+                                f"{bnd[0] / ms[name][0]:.1%} of its bound "
+                                f"({bnd[0]:.4f} ms by {bnd[1]}); plain "
+                                f"{ms[name][1]:.3f} ms; SDPA with the mask "
+                                f"{library[name]:.4f} ms; on {card}")
+        log("bert-kernels", f"SDPA with an additive bf16 mask at H={H} runs"
+                            f" {backend}")
+        del args, kw, sdpa
+        torch.cuda.empty_cache()
 
 
 def crossover_phase(torch, card):
@@ -2319,7 +2436,7 @@ def mixtral_ep_phase(torch, card):
                           "the phase runs nothing")
         return zeros
     total = dict(zeros)
-    for n in [2] + ([4] if cards >= 4 else []):
+    for n in world_sizes("mixtral-ep", cards):
         env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
                if n < cards else None)
         ranks = run_world("mixtral-ep", n, env)
@@ -2408,7 +2525,7 @@ def mp_expected(axes, n_layers):
     fsdp, tp = axes.get("fsdp", 1) > 1, axes.get("tp", 1) > 1
     return ({"all_gather": (18 * L + 2) * fsdp,
              "reduce_scatter": (9 * L + 2) * fsdp,
-             "tp_all_reduce": (5 * L + 4) * tp},
+             "tp_all_reduce": (5 * L + 4) * tp, "all_to_all": 0},
             {"fa_fwd": 2 * L, "fa_bwd_dq": L, "fa_bwd_dkv": L})
 
 
@@ -2425,11 +2542,8 @@ def model_flops(cfg, T):
 
 def _mp_train(torch, hvd, mesh, cfg, tokens, n_steps, profile, first=None):
     """``n_steps`` GSPMD steps of the Llama ``cfg`` built under ``mesh``
-    (seed 0), AdamW(1e-4); ``first(model)`` runs on the first step's reduced
-    gradients before the update. Returns the step's record."""
+    (seed 0), AdamW(1e-4) (:func:`_gspmd_steps`)."""
     from horovod_tpu_torch.models import llama as hvd_llama
-    from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.parallel import sharding
     from horovod_tpu_torch.train import (create_gspmd_train_state,
                                          make_gspmd_train_step,
                                          mesh_param_groups, shard_tokens)
@@ -2440,47 +2554,10 @@ def _mp_train(torch, hvd, mesh, cfg, tokens, n_steps, profile, first=None):
         named_parameters=model.named_parameters())
     state = create_gspmd_train_state(model, opt, mesh)
     step = make_gspmd_train_step(model, opt, mesh)
-    shard = shard_tokens(tokens, mesh)
-    synchronize = opt.synchronize
-    done = []
-
-    def check_first_step():
-        synchronize()
-        if first is not None and not done:
-            done.append(first(model))
-
-    opt.synchronize = check_first_step
-    torch.cuda.reset_peak_memory_stats()
-    res = {"losses": [], "times": [], "launches": [], "counts": []}
-    prof = None
-    for i in range(n_steps):
-        fa.reset_launch_counts()
-        sharding.reset_counts()
-        torch.cuda.synchronize()
-        with (torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-              if profile and i == n_steps - 1
-              else contextlib.nullcontext()) as prof:
-            t = time.perf_counter()
-            state, loss = step(state, shard)
-            res["losses"].append(loss.item())
-            res["times"].append(time.perf_counter() - t)
-        res["launches"].append({k: f.launches for k, f in fa.KERNELS.items()})
-        res["counts"].append(dict(sharding.counts))
-    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if prof is not None:
-        res["profile"] = device_breakdown(prof, res["times"][-1])
-    differ = 0
-    for p in model.parameters():
-        rs = sharding.replica_set(mesh, sharding.holder_axes(p))
-        buf = p.detach().clone()
-        hvd.broadcast_(buf, rs.ranks[0] if rs is not None else 0,
-                       process_set=rs)
-        differ += int(not torch.equal(buf, p.detach()))
-    res["params_differing"] = differ
-    res["first"] = done[0] if done else None
-    del state, step, opt, model, synchronize, check_first_step, prof
+    res = _gspmd_steps(torch, hvd, mesh, model, state, step,
+                       shard_tokens(tokens, mesh), n_steps, profile, first)
+    # the model, its optimizer and their cycles go before the next run
+    del state, step, opt, model
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2489,7 +2566,6 @@ def _mp_train(torch, hvd, mesh, cfg, tokens, n_steps, profile, first=None):
 def model_parallel_worker(out_dir):
     """One rank of the ``model-parallel`` phase; writes ``rank<r>.json``."""
     import torch
-    import torch.distributed as dist
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import llama as hvd_llama
     from horovod_tpu_torch.parallel import create_mesh, sharding
@@ -2526,24 +2602,8 @@ def model_parallel_worker(out_dir):
         gc.collect()
         torch.cuda.empty_cache()
 
-        def gaps(model):
-            """Per gradient, its squared error and squared norm summed over
-            the blocks, each block counted once (divided by its holders),
-            summed over the world: the gathered gradient's normwise gap."""
-            sums = []
-            for k, p in model.named_parameters():
-                holders = n // math.prod(
-                    a.size for a in p.placement.axes if a is not None)
-                g, want = p.grad.float(), ref[k]
-                sums += [(g - want).square().sum() / holders,
-                         want.square().sum() / holders]
-            sums = torch.stack(sums)
-            dist.all_reduce(sums)
-            per = (sums[0::2] / sums[1::2]).sqrt()
-            return [per.max().item(), (sums[0::2].sum()
-                                       / sums[1::2].sum()).sqrt().item()]
-
-        res = _mp_train(torch, hvd, mesh, cfg, tokens, 1, False, gaps)
+        res = _mp_train(torch, hvd, mesh, cfg, tokens, 1, False,
+                        lambda m: _block_gaps(torch, m, ref, n))
         want_counts, want_launches = mp_expected(axes, cfg.n_layers)
         res.update(axes=axes, ref_loss=ref_loss, want_counts=want_counts,
                    want_launches=want_launches,
@@ -2575,11 +2635,16 @@ def model_parallel_worker(out_dir):
 
 
 def _check_mp_run(what, run):
+    """A run's per-step gates: B1-B3 launches, collectives (``want_counts``
+    the same every step, or a list of each step's), finite losses, blocks
+    bit-identical on their holders."""
     if run["launches"] != [run["want_launches"]] * len(run["launches"]):
         raise AssertionError(f"{what}: B1-B3 launches per step "
                              f"{run['launches']}, expected "
                              f"{run['want_launches']}")
-    if run["counts"] != [run["want_counts"]] * len(run["counts"]):
+    want = run["want_counts"]
+    if run["counts"] != (want if isinstance(want, list)
+                         else [want] * len(run["counts"])):
         raise AssertionError(f"{what}: collectives per step {run['counts']},"
                              f" expected {run['want_counts']}")
     if not all(math.isfinite(x) for x in run["losses"]):
@@ -2599,7 +2664,7 @@ def model_parallel_phase(torch, card):
                               "2 or more ranks; on one card the phase runs "
                               "nothing")
         return total
-    for n in [2] + ([4] if cards >= 4 else []):
+    for n in world_sizes("model-parallel", cards):
         t0 = time.perf_counter()
         env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
                if n < cards else None)
@@ -2611,7 +2676,7 @@ def model_parallel_phase(torch, card):
         for i, run in enumerate(ranks[0]["runs"]):
             what = f"{n} ranks, {run['axes']}, 2 layers"
             rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
-            worst, whole = run["first"]
+            worst, whole, _, _ = run["first"]
             if not rel <= MP_LOSS_RTOL:
                 raise AssertionError(f"{what}: first loss {run['losses'][0]}"
                                      f" vs the whole model's "
@@ -2690,6 +2755,7 @@ def pipeline_worker(out_dir):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import llama as hvd_llama
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optimizer import deferred_pair, optimizer_for
     from horovod_tpu_torch.parallel import create_mesh
     from horovod_tpu_torch.train import (create_pipeline_train_state,
                                          make_pipeline_train_step)
@@ -2781,8 +2847,54 @@ def pipeline_worker(out_dir):
             torch.cuda.empty_cache()
         res["seconds"] = time.perf_counter() - t0
         runs.append(res)
+    pairs = []
+    for schedule in (("gpipe", "1f1b") if n == 2 else ()):
+        # pair= on {"pp": 2}: deferred_pair(every=2) naming each stage's
+        # MLP, which skip steps must leave bit-unchanged, without a
+        # gradient, and apply steps must move.
+        t0 = time.perf_counter()
+        mesh = create_mesh({"pp": n})
+        pp = mesh.axis("pp")
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        shape = (PP_M, 1, PP_T, cfg.dim)
+        x = torch.randn(shape, generator=gen, device="cuda", dtype=cfg.dtype)
+        t = torch.randn(shape, generator=gen, device="cuda", dtype=cfg.dtype)
+        blk = _pp_stage(torch, cfg, 100 + pp.index)
+        pair = deferred_pair(1e-4, every=2,
+                             is_expert=lambda name: name.startswith("mlp."))
+        opt = optimizer_for(pair.apply, blk.named_parameters())
+        state = create_pipeline_train_state(blk, opt)
+        step = make_pipeline_train_step(
+            stage_fn, (lambda y, tt: mse(y, tt)), opt, mesh=mesh,
+            schedule=schedule, pair=pair)
+        mlp = list(blk.mlp.parameters())
+        losses, times, launches, kept, moved = [], [], [], True, True
+        for i in range(4):
+            before = [p.detach().clone() for p in mlp]
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, loss = step(state, x, t)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t1)
+            launches.append({k: f.launches for k, f in fa.KERNELS.items()})
+            same = [p.grad is None and torch.equal(p, w)
+                    for p, w in zip(mlp, before)]
+            if (i + 1) % 2:
+                kept &= all(same)
+            else:
+                moved &= not any(torch.equal(p, w)
+                                 for p, w in zip(mlp, before))
+        pairs.append({"schedule": schedule, "axes": {"pp": n},
+                      "stage": pp.index, "n": pp.size, "losses": losses,
+                      "times": times, "launches": launches,
+                      "frozen_kept": kept, "applies_moved": moved,
+                      "seconds": time.perf_counter() - t0})
+        del state, step, opt, blk, mlp, before, x, t
+        gc.collect()
+        torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump({"rank": rank, "size": n, "runs": runs}, f)
+        json.dump({"rank": rank, "size": n, "runs": runs, "pairs": pairs}, f)
     hvd.shutdown()
     return 0
 
@@ -2796,7 +2908,7 @@ def pipeline_phase(torch, card):
         log("pipeline", "one card: a pipeline needs a pp axis of 2 or more "
                         "ranks; on one card the phase runs nothing")
         return total
-    for n in [2] + ([4] if cards >= 4 else []):
+    for n in world_sizes("pipeline", cards):
         t0 = time.perf_counter()
         env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
                if n < cards else None)
@@ -2849,7 +2961,742 @@ def pipeline_phase(torch, card):
                             f"s; on {card}")
             for k in total:
                 total[k] += run["launches"][0][k]
+        for i, run in enumerate(ranks[0]["pairs"]):
+            what = f"{n} ranks, {run['axes']}, {run['schedule']}, pair="
+            for r in ranks:
+                rr = r["pairs"][i]
+                last = rr["stage"] == rr["n"] - 1
+                b1 = PP_M if (run["schedule"] == "gpipe" or last) \
+                    else 2 * PP_M
+                want = {"fa_fwd": b1, "fa_bwd_dq": PP_M, "fa_bwd_dkv": PP_M}
+                if rr["launches"] != [want] * 4:
+                    raise AssertionError(f"{what}, rank {r['rank']}: B1-B3 "
+                                         f"per step {rr['launches']}, "
+                                         f"expected {want}")
+                if not all(math.isfinite(x) for x in rr["losses"]):
+                    raise AssertionError(f"{what}: non-finite loss "
+                                         f"{rr['losses']}")
+                if not (rr["frozen_kept"] and rr["applies_moved"]):
+                    raise AssertionError(f"{what}, rank {r['rank']}: a skip "
+                                         "step moved the MLP or gave it a "
+                                         "gradient, or an apply step left "
+                                         "it")
+            log("pipeline", f"{what}deferred_pair(1e-4, every=2) naming each"
+                            f" stage's MLP, 4 steps: losses {run['losses']};"
+                            f" steps "
+                            f"{[round(x * 1e3, 1) for x in run['times']]}"
+                            f" ms (skip, apply, skip, apply); skip steps "
+                            f"leave the MLP bit-unchanged with no gradient, "
+                            f"apply steps move it; {run['seconds']:.1f} s; "
+                            f"on {card}")
         log("pipeline", f"{n} ranks: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _block_gaps(torch, model, ref, n, zero=()):
+    """Per gradient of ``model`` against ``ref`` (this rank's blocks of the
+    whole model's gradients), its squared error and squared norm summed
+    over the blocks, each block counted once (divided by its holders),
+    summed over the world: the worst gathered gradient's normwise gap, all
+    of them together, and the norm of the gradients named by a suffix in
+    ``zero``, which are 0 in exact arithmetic (BERT's key bias: a bias
+    added to every key adds the same to each score of a row, which the
+    softmax cancels) and so have no relative gap; the first two leave them
+    out."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import sharding
+    sums, zeros, names = [], [], []
+    for k, p in model.named_parameters():
+        place = sharding.placement_of(p)
+        holders = n // math.prod(a.size for a in (place.axes if place
+                                                  else ()) if a is not None)
+        g, want = p.grad.float(), ref[k]
+        if k.endswith(tuple(zero)):
+            zeros.append(g.square().sum() / holders)
+            continue
+        sums += [(g - want).square().sum() / holders,
+                 want.square().sum() / holders]
+        names.append(k)
+    sums = torch.stack(sums + (zeros or [g.new_zeros(())]))
+    dist.all_reduce(sums)
+    m = len(sums) - max(1, len(zeros))
+    per = (sums[0:m:2] / sums[1:m:2]).sqrt()
+    return [per.max().item(), (sums[0:m:2].sum()
+                               / sums[1:m:2].sum()).sqrt().item(),
+            sums[m:].sum().sqrt().item(), names[int(per.argmax())]]
+
+
+def _blocks_differing(torch, hvd, mesh, model):
+    """How many of ``model``'s blocks differ from their first holder's."""
+    from horovod_tpu_torch.parallel import sharding
+    differ = 0
+    for p in model.parameters():
+        rs = sharding.replica_set(mesh, sharding.holder_axes(p))
+        buf = p.detach().clone()
+        hvd.broadcast_(buf, rs.ranks[0] if rs is not None else 0,
+                       process_set=rs)
+        differ += int(not torch.equal(buf, p.detach()))
+    return differ
+
+
+def _gspmd_steps(torch, hvd, mesh, model, state, step, batch, n_steps,
+                 profile, first=None, bank=(), every=None):
+    """``n_steps`` of ``step`` on this rank's ``batch``, the last under
+    ``torch.profiler`` when ``profile``; ``first(model)`` runs on the first
+    step's reduced gradients before the update. With ``every`` (a deferred
+    cadence), checks that each skip step leaves ``bank`` without a
+    gradient and bit-unchanged and each apply step moves it. Returns the
+    run's record."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import moe, sharding
+    opt = state.optimizer
+    synchronize, done = opt.synchronize, []
+
+    def check_first_step():
+        synchronize()
+        if first is not None and not done:
+            done.append(first(model))
+
+    opt.synchronize = check_first_step
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": [], "times": [], "launches": [], "counts": [],
+           "skips_ok": True, "applies_moved": True}
+    prof = None
+    for i in range(n_steps):
+        before = [p.detach().clone() for p in bank] if every else []
+        fa.reset_launch_counts()
+        sharding.reset_counts()
+        moe.expert_alltoall.launches = 0
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if profile and i == n_steps - 1
+              else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            state, loss = step(state, batch)
+            res["losses"].append(loss.item())
+            res["times"].append(time.perf_counter() - t)
+        res["launches"].append({k: f.launches for k, f in fa.KERNELS.items()})
+        res["counts"].append(dict(sharding.counts,
+                                  all_to_all=moe.expert_alltoall.launches))
+        if every and (i + 1) % every:
+            res["skips_ok"] &= all(p.grad is None and torch.equal(p, w)
+                                   for p, w in zip(bank, before))
+        elif every:
+            res["applies_moved"] &= all(not torch.equal(p, w)
+                                        for p, w in zip(bank, before))
+        del before
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if prof is not None:
+        res["profile"] = device_breakdown(prof, res["times"][-1],
+                                          MODEL_GROUPS)
+    res["params_differing"] = _blocks_differing(torch, hvd, mesh, model)
+    res["first"] = done[0] if done else None
+    opt.synchronize = synchronize
+    del state, step, opt, prof, synchronize, check_first_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _step_rates(run, n, tokens_a_step, flops_per_token):
+    """The median timed step (the first and the profiled last left out),
+    tokens/s/GPU and MFU against ``H100_BF16_FLOPS``."""
+    timed = sorted(run["times"][1:-1]) or sorted(run["times"])
+    step_s = timed[len(timed) // 2]
+    per_gpu = tokens_a_step / n / step_s
+    return step_s, per_gpu, per_gpu * flops_per_token / H100_BF16_FLOPS
+
+
+def _data_shards(axes):
+    return math.prod(axes.get(a, 1) for a in ("dp", "fsdp", "ep"))
+
+
+def _ref_blocks(model, grads):
+    """This rank's block of each whole gradient in ``grads``, as ``model``
+    (built under a mesh) holds its parameters."""
+    from horovod_tpu_torch.parallel import sharding
+    out = {}
+    for k, p in model.named_parameters():
+        place = sharding.placement_of(p)
+        out[k] = (place.block(grads[k]) if place else grads[k]).clone()
+    return out
+
+
+#: The ``mixtral-mp`` phase: Mixtral-8x7B's widths at 6 of its 32 layers
+#: on 4 cards (full depth, 46.7 B parameters, holds 747 GB of f32
+#: parameters, gradients and AdamW moments: no layout of 4 cards fits it;
+#: at 8 layers a rank ran out of its 80 GB in AdamW's foreach update, with
+#: 67.6 GB allocated), 2 x 2048 tokens a data shard, remat "dots", aux
+#: weight 0.02.
+MMP_LAYERS = 6
+MMP_PARITY_MESHES = {2: [{"fsdp": 2}, {"tp": 2}],
+                     4: [{"fsdp": 2, "ep": 2}, {"ep": 2, "tp": 2}]}
+MMP_FULL_MESHES = [{"fsdp": 2, "ep": 2}, {"ep": 2, "tp": 2}]
+#: The deferred run's mesh and cadence.
+MMP_DEFERRED, MMP_EVERY = {"fsdp": 2, "ep": 2}, 2
+
+
+def mixtral_mp_expected(axes, n_layers, skip=False):
+    """The collectives a step of the Mixtral implies under remat dots, per
+    rank (``parallel/sharding.py``, ``parallel/moe.py``), derived as
+    ``mp_expected`` derives the Llama's: each of a layer's 10 fsdp-sharded
+    parameters (2 norm scales, 4 attention weights, the router, the 3
+    banks) gathered in the forward and again in the recompute, the final
+    norm and the head once, each reduce-scattered once (on a deferred skip
+    step the 3 banks take no gradient: no reduce-scatter); the expert
+    exchange 2 a layer forward and 2 backward (the policy saves its
+    outputs, so the recompute does not exchange again); over tp one
+    all-reduce for the embedding, 2 a layer forward (after ``wo`` and the
+    experts' ``w2``), 2 backward (``copy_to_tp`` before ``wq``/``wk``/
+    ``wv`` and before the experts' ``w1``/``w3``) and 2 in the recompute
+    (the combine saves the experts' output, so the recompute runs through
+    both), 1 before the head backward and 2 for the loss. B1 twice a
+    layer (forward and recompute), B2 and B3 once."""
+    L = n_layers
+    fsdp, ep, tp = (axes.get(a, 1) > 1 for a in ("fsdp", "ep", "tp"))
+    return ({"all_gather": (20 * L + 2) * fsdp,
+             "reduce_scatter": ((7 if skip else 10) * L + 2) * fsdp,
+             "tp_all_reduce": (6 * L + 4) * tp,
+             "all_to_all": 4 * L * ep},
+            {"fa_fwd": 2 * L, "fa_bwd_dq": L, "fa_bwd_dkv": L})
+
+
+def mixtral_active_flops(cfg, T):
+    """Model FLOPs a token by active parameters (no recompute, no capacity
+    padding): 6 x (each layer's attention weights, its router and the
+    top_k of its n_experts experts' three weights, and the head) plus the
+    causal attention, 6 x layers x dim x T."""
+    hd = cfg.dim // cfg.n_heads
+    layer = (cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * cfg.dim + cfg.dim * cfg.n_experts
+             + cfg.top_k * 3 * cfg.dim * cfg.hidden_dim)
+    n = cfg.n_layers * layer + cfg.vocab_size * cfg.dim
+    return 6 * n + 6 * cfg.n_layers * cfg.dim * T
+
+
+@contextlib.contextmanager
+def routing_plan(torch, model, mode, plan):
+    """Within the block, each MoE layer of ``model`` (``i``, its index
+    among them) routes through ``parallel.moe.topk_router_sorted`` as
+    ``mode`` says: ``"record"`` keeps its top-k choices, ``[T, k]``, in
+    ``plan[i]``; ``"compare"`` counts in ``plan["flips"][i]`` the tokens
+    whose chosen experts differ from ``plan[i]``; ``"force"`` counts them
+    too, then routes each token to ``plan[i]``'s experts, with the gates
+    of its own router's probabilities there (the router's ``torch.sort``
+    answers with the plan's order). A forced layer computes the recorded
+    model's routing function on its own inputs: a split that moves a bf16
+    rounding cannot flip a near-tied choice. Each call of a layer
+    (remat's recompute too) reads and writes the same entry."""
+    from horovod_tpu_torch.models import mixtral
+    from horovod_tpu_torch.parallel import moe
+    index = {id(m): i for i, m in enumerate(
+        m for m in model.modules() if isinstance(m, mixtral.MoEMLP))}
+    route, forward, layer = moe.topk_router_sorted, mixtral.MoEMLP.forward, []
+
+    def moe_forward(self, x):
+        layer.append(index[id(self)])
+        try:
+            return forward(self, x)
+        finally:
+            layer.pop()
+
+    def router(logits, num_experts, capacity, top_k=2):
+        i = layer[-1]
+        with torch.no_grad():
+            own = torch.sort(torch.softmax(logits.float(), dim=-1), dim=-1,
+                             descending=True, stable=True)[1][:, :top_k]
+        if mode == "record":
+            plan[i] = own
+            return route(logits, num_experts, capacity, top_k)
+        want = plan[i]
+        plan["flips"][i] = int((own.sort(-1)[0] != want.sort(-1)[0])
+                               .any(-1).sum())
+        if mode == "compare":
+            return route(logits, num_experts, capacity, top_k)
+        rest = torch.ones(want.shape[0], num_experts, dtype=torch.bool,
+                          device=want.device).scatter_(1, want, False)
+        order = torch.cat([want, torch.arange(
+            num_experts, device=want.device).expand(want.shape[0], -1)[rest]
+            .view(want.shape[0], -1)], 1)
+
+        class Replayed:
+            """``torch`` but for ``sort``, which gives the plan's order."""
+
+            def __getattr__(self, name):
+                return getattr(torch, name)
+
+            def sort(self, probs, **_):
+                return probs.gather(-1, order), order
+
+        moe.torch = Replayed()
+        try:
+            return route(logits, num_experts, capacity, top_k)
+        finally:
+            moe.torch = torch
+
+    moe.topk_router_sorted, mixtral.MoEMLP.forward = router, moe_forward
+    try:
+        yield plan
+    finally:
+        moe.topk_router_sorted, mixtral.MoEMLP.forward = route, forward
+
+
+def mixtral_mp_worker(out_dir):
+    """One rank of the ``mixtral-mp`` phase; writes ``rank<r>.json``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import mixtral
+    from horovod_tpu_torch.optimizer import (deferred_pair, is_expert_param,
+                                             moe_adamw)
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.train import (create_gspmd_train_state,
+                                         make_gspmd_deferred_train_step,
+                                         make_gspmd_train_step,
+                                         mesh_param_groups, shard_tokens,
+                                         vocab_parallel_nll)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    base = dataclasses.replace(mixtral.mixtral_8x7b(), use_flash=True)
+    runs = []
+    for axes in MMP_PARITY_MESHES[n]:
+        t0 = time.perf_counter()
+        mesh = create_mesh(axes)
+        shards = _data_shards(axes)
+        # No drops (capacity factor E / top_k) and no aux loss: each rank's
+        # routing is then the whole model's on its tokens, if the router
+        # sees the same input. bf16, the compute of the timed runs. Under
+        # tp the router's input differs from the whole model's by the bf16
+        # rounding of the tp partial sums, which flips near-tied top-2
+        # choices, and a flipped token moves the router's gradient (0.17
+        # normwise on {"tp": 2}): the tp cells replay the whole model's
+        # plan (routing_plan). Every cell counts the tokens its own router
+        # would route apart from the whole model's.
+        cfg = dataclasses.replace(base, n_layers=2, capacity_factor=float(
+            base.n_experts // base.top_k))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (MP_B * shards, MP_T),
+                               generator=gen, device="cuda")
+        whole = mixtral.Mixtral(cfg, seed=0, mesh=None)
+        count = tokens.shape[0] * (MP_T - 1)
+        ref_loss, plans = 0.0, []
+        for d in range(shards):
+            rows = tokens[d * MP_B:(d + 1) * MP_B]
+            with routing_plan(torch, whole, "record", {}) as plan:
+                nll = vocab_parallel_nll(whole(rows)[:, :-1],
+                                         rows[:, 1:]).sum()
+                (nll / count).backward()
+            plans.append(plan)
+            ref_loss += nll.item() / count
+        grads = {k: p.grad for k, p in whole.named_parameters()}
+        del whole, nll
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = mixtral.Mixtral(cfg, seed=0, mesh=mesh)
+        ref = _ref_blocks(model, grads)
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(mesh_param_groups(model, mesh), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        state = create_gspmd_train_state(model, opt, mesh)
+        step = make_gspmd_train_step(model, opt, mesh)
+        batch = shard_tokens(tokens, mesh)
+        # this rank's data shard: the whole model's plan for its rows
+        d = next(d for d in range(shards)
+                 if torch.equal(tokens[d * MP_B:(d + 1) * MP_B], batch))
+        forced = "tp" in axes
+        with routing_plan(torch, model, "force" if forced else "compare",
+                          dict(plans[d], flips={})) as plan:
+            res = _gspmd_steps(torch, hvd, mesh, model, state, step, batch,
+                               1, False,
+                               lambda m: _block_gaps(torch, m, ref, n))
+        want_counts, want_launches = mixtral_mp_expected(axes, cfg.n_layers)
+        res.update(axes=axes, ref_loss=ref_loss, want_counts=want_counts,
+                   want_launches=want_launches, forced=forced,
+                   flips=sum(plan["flips"].values()),
+                   routed=cfg.n_layers * batch.numel(),
+                   load=mixtral.router_load(model),
+                   coords={a: mesh.axis(a).index for a in mesh.axis_names},
+                   seconds=time.perf_counter() - t0)
+        del plans, plan, batch
+        runs.append(res)
+        del state, step, opt, model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    full = []
+    cases = ([(axes, None) for axes in MMP_FULL_MESHES]
+             + [(MMP_DEFERRED, MMP_EVERY)]) if n == 4 else []
+    for axes, every in cases:
+        t0 = time.perf_counter()
+        mesh = create_mesh(axes)
+        shards = _data_shards(axes)
+        cfg = dataclasses.replace(base, n_layers=MMP_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (MP_B * shards, MP_T),
+                               generator=gen, device="cuda")
+        model = mixtral.Mixtral(cfg, seed=0, mesh=mesh)
+        if every:
+            pair = deferred_pair(1e-4, every=every)
+            state = create_gspmd_train_state(model, pair.apply, mesh)
+            step = make_gspmd_deferred_train_step(model, pair, mesh,
+                                                  aux_weight=MIXTRAL_AUX)
+        else:
+            state = create_gspmd_train_state(model, moe_adamw(1e-4), mesh)
+            step = make_gspmd_train_step(model, state.optimizer, mesh,
+                                         aux_weight=MIXTRAL_AUX)
+        bank = [p for k, p in model.named_parameters()
+                if is_expert_param(k)]
+        res = _gspmd_steps(torch, hvd, mesh, model, state, step,
+                           shard_tokens(tokens, mesh), 4,
+                           rank == 0 and not every, bank=bank, every=every)
+        res.update(axes=axes, every=every, shards=shards,
+                   n_layers=cfg.n_layers,
+                   want_counts=[mixtral_mp_expected(
+                       axes, cfg.n_layers, every and (i + 1) % every)[0]
+                       for i in range(4)],
+                   want_launches=mixtral_mp_expected(axes,
+                                                     cfg.n_layers)[1],
+                   flops_per_token=mixtral_active_flops(cfg, MP_T),
+                   load=mixtral.router_load(model),
+                   coords={a: mesh.axis(a).index for a in mesh.axis_names},
+                   seconds=time.perf_counter() - t0)
+        full.append(res)
+        del state, step, model, bank
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs, "full": full}, f)
+    hvd.shutdown()
+    return 0
+
+
+def _tp_peers_route_alike(what, ranks, key, i):
+    """The tp ranks of each row routed their (shared) tokens alike."""
+    for r in ranks:
+        run = r[key][i]
+        if "tp" not in run["coords"]:
+            continue
+        for q in ranks:
+            other = q[key][i]
+            if all(other["coords"][a] == run["coords"][a]
+                   for a in run["coords"] if a != "tp") \
+                    and other["load"] != run["load"]:
+                raise AssertionError(f"{what}: tp peers routed apart: "
+                                     f"{run['load']} vs {other['load']}")
+
+
+def mixtral_mp_phase(torch, card):
+    """The ``mixtral-mp`` phase (module doc). Returns rank 0's launches of
+    B1-B3 in the second step of its first full-width run (unprofiled; its
+    counts set to 0 just before it), or over its parity steps where there
+    is no full-width run (2 cards), or zeros on one card."""
+    total = dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"], 0)
+    failed = []
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("mixtral-mp", "one card: fsdp, tp and ep split the model over 2 "
+                          "or more ranks; on one card the phase runs "
+                          "nothing")
+        return total
+    for n in world_sizes("mixtral-mp", cards):
+        t0 = time.perf_counter()
+        env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+               if n < cards else None)
+        ranks = run_world("mixtral-mp", n, env)
+        for res in ranks:
+            for run in res["runs"]:
+                _check_mp_run(f"{n} ranks, {run['axes']}, rank "
+                              f"{res['rank']}", run)
+            for run in res["full"]:
+                what = (f"{n} ranks, {run['axes']}, every {run['every']}, "
+                        f"rank {res['rank']}")
+                _check_mp_run(what, run)
+                if run["every"] and not (run["skips_ok"]
+                                         and run["applies_moved"]):
+                    raise AssertionError(f"{what}: a skip step moved or "
+                                         "took a gradient for the bank, or "
+                                         "an apply step left it")
+        for i, run in enumerate(ranks[0]["runs"]):
+            what = f"{n} ranks, {run['axes']}, 2 layers"
+            _tp_peers_route_alike(what, ranks, "runs", i)
+            rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+            worst, whole, _, worst_name = run["first"]
+            # every reading is printed before the phase fails
+            if not rel <= MP_LOSS_RTOL:
+                failed.append(f"{what}: first loss {run['losses'][0]} vs "
+                              f"the whole model's {run['ref_loss']}")
+            if not worst <= MP_GRAD_NORMWISE:
+                failed.append(f"{what}: a gathered gradient is off the "
+                              f"whole model's by {worst:.4f} normwise "
+                              f"({worst_name})")
+            # tokens x layers whose top-2 set left the whole model's, over
+            # the data shards (a tp row shares its tokens: its first rank)
+            rows = [r["runs"][i] for r in ranks
+                    if r["runs"][i]["coords"].get("tp", 0) == 0]
+            apart = (f"{sum(x['flips'] for x in rows)} of "
+                     f"{sum(x['routed'] for x in rows)} token routings")
+            routing = (f"the whole model's plan replayed ({apart} would "
+                       f"have chosen apart)" if run["forced"] else
+                       f"its own routing ({apart} chose apart from the "
+                       f"whole model)")
+            log("mixtral-mp", f"{what}, {MP_B} x {MP_T} tokens a data shard,"
+                              f" bf16, no drops, no aux, remat dots, "
+                              f"AdamW(1e-4), one step, {routing}: loss "
+                              f"{run['losses'][0]:.6f} vs the "
+                              f"whole model's {run['ref_loss']:.6f} (rel "
+                              f"{rel:.2e}, gate {MP_LOSS_RTOL}); gathered "
+                              f"gradients vs the whole model's: worst tensor"
+                              f" {worst:.2e} normwise ({worst_name}), all "
+                              f"{whole:.2e} (gate 2^-5); collectives "
+                              f"{run['counts'][0]}; "
+                              f"B1-B3 {run['launches'][0]}; blocks "
+                              f"bit-identical on their holders; tp peers "
+                              f"route alike; peak {run['peak_gb']:.1f} GB; "
+                              f"{run['seconds']:.1f} s; on {card}")
+            if not ranks[0]["full"]:
+                for k in total:
+                    total[k] += run["launches"][0][k]
+        if ranks[0]["full"]:
+            total = dict(ranks[0]["full"][0]["launches"][1])
+        for j, run in enumerate(ranks[0]["full"]):
+            what = (f"{n} ranks, {run['axes']}, mixtral_8x7b width, "
+                    f"{run['n_layers']} of 32 layers")
+            _tp_peers_route_alike(what, ranks, "full", j)
+            peak = max(r["full"][j]["peak_gb"] for r in ranks)
+            if run["every"]:
+                skip = [t for i, t in enumerate(run["times"]) if i % 2 == 0]
+                apply = [t for i, t in enumerate(run["times"]) if i % 2]
+                log("mixtral-mp", f"{what}, deferred_pair(1e-4, every="
+                                  f"{run['every']}), aux 0.02: losses "
+                                  f"{run['losses']}; skip steps "
+                                  f"{[round(t * 1e3, 1) for t in skip]} ms, "
+                                  f"apply steps "
+                                  f"{[round(t * 1e3, 1) for t in apply]} ms;"
+                                  f" collectives a step {run['counts']}; "
+                                  f"skip steps leave the bank bit-unchanged "
+                                  f"with no gradient, apply steps move it; "
+                                  f"peak {peak:.1f} GB (worst rank); "
+                                  f"{run['seconds']:.1f} s; on {card}")
+                continue
+            if not run["losses"][-1] < run["losses"][0]:
+                raise AssertionError(f"{what}: loss did not fall: "
+                                     f"{run['losses']}")
+            step_s, per_gpu, mfu = _step_rates(
+                run, n, run["shards"] * MP_B * MP_T, run["flops_per_token"])
+            log("mixtral-mp", f"{what}, {MP_B} x {MP_T} tokens a data shard,"
+                              f" remat dots, aux 0.02, moe_adamw(adamw): "
+                              f"losses {run['losses']}; step "
+                              f"{step_s * 1e3:.1f} ms (first "
+                              f"{run['times'][0] * 1e3:.1f} ms, profiled "
+                              f"{run['times'][-1] * 1e3:.1f} ms); "
+                              f"{per_gpu:.0f} tokens/s/GPU; MFU {mfu:.1%} of "
+                              f"989 TFLOP/s by active parameters (top-2 of 8"
+                              f" experts: mixtral_active_flops, "
+                              f"{run['flops_per_token'] / 1e9:.2f} GFLOP a "
+                              f"token); peak {peak:.1f} GB (worst rank); "
+                              f"collectives a step {run['counts'][1]} "
+                              f"(expected {run['want_counts'][1]}); B1-B3 a "
+                              f"step "
+                              f"{run['launches'][1]}; blocks bit-identical "
+                              f"on their holders; tp peers route alike; "
+                              f"{run['seconds']:.1f} s; on {card}")
+            log("mixtral-mp", f"{what}, rank 0, step 4 under "
+                              f"torch.profiler: {run['profile']}")
+        log("mixtral-mp", f"{n} ranks: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return total
+
+
+#: The ``bert-mp`` phase: BERT-Large (24 layers) with the masked-LM loss,
+#: 8 x 512 tokens a data shard, 15 % of them masked, remat off (as phase
+#: 10), AdamW(1e-4).
+BMP_B, BMP_T = 8, 512
+BMP_MESHES = {2: [{"tp": 2}, {"fsdp": 2}],
+              4: [{"dp": 2, "tp": 2}, {"fsdp": 4}]}
+
+
+def bert_mp_expected(axes, n_layers):
+    """The collectives a step of BERT implies with remat off, per rank:
+    over tp one all-reduce for the table, 4 a layer (after ``wo`` and
+    ``ffn_out`` forward, ``copy_to_tp`` before ``wq``/``wk``/``wv`` and
+    before ``ffn_in`` backward), 1 before the tied head's backward and 2
+    for the loss; under fsdp each layer's 6 dense weights and
+    ``mlm_transform``'s gathered once and reduce-scattered once (the
+    tables, biases and LayerNorms are whole). B1, B2 and B3 once a
+    layer."""
+    L = n_layers
+    fsdp, tp = axes.get("fsdp", 1) > 1, axes.get("tp", 1) > 1
+    return ({"all_gather": (6 * L + 1) * fsdp,
+             "reduce_scatter": (6 * L + 1) * fsdp,
+             "tp_all_reduce": (4 * L + 4) * tp, "all_to_all": 0},
+            {"fa_fwd": L, "fa_bwd_dq": L, "fa_bwd_dkv": L})
+
+
+def bert_flops(cfg, T):
+    """Model FLOPs a token: 6 x the parameters of the products (each
+    layer's four attention weights and two FFN weights, ``mlm_transform``
+    and the tied head) plus the bidirectional attention, 12 x layers x dim
+    x T."""
+    layer = 4 * cfg.dim * cfg.dim + 2 * cfg.dim * cfg.hidden_dim
+    n = cfg.n_layers * layer + cfg.dim * cfg.dim + cfg.vocab_size * cfg.dim
+    return 6 * n + 12 * cfg.n_layers * cfg.dim * T
+
+
+def bert_mp_batch(torch, cfg, rows, seed):
+    """Seeded tokens, MLM labels and a 15 % mask, ``[rows, BMP_T]``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (rows, BMP_T)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    mask = torch.rand(shape, generator=gen, device="cuda") < 0.15
+    return tokens, labels, mask
+
+
+def bert_mp_worker(out_dir):
+    """One rank of the ``bert-mp`` phase; writes ``rank<r>.json``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.bert import Bert, bert_large
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.train import (create_gspmd_train_state,
+                                         make_gspmd_train_step,
+                                         mesh_param_groups, mlm_loss_sums,
+                                         shard_tokens)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    base = dataclasses.replace(bert_large(), remat=False, use_flash=True)
+    runs, full = [], []
+    for axes in BMP_MESHES[n]:
+        for layers in (2, base.n_layers):
+            t0 = time.perf_counter()
+            mesh = create_mesh(axes)
+            shards = _data_shards(axes)
+            cfg = dataclasses.replace(base, n_layers=layers)
+            batch = bert_mp_batch(torch, cfg, BMP_B * shards, layers)
+            ref, ref_loss = None, None
+            if layers == 2:
+                # The whole model over the global batch, one data shard at
+                # a time, divided by the global masked count.
+                whole = Bert(cfg, seed=0, mesh=None)
+                count = batch[2].sum()
+                ref_loss = 0.0
+                for d in range(shards):
+                    part = tuple(t[d * BMP_B:(d + 1) * BMP_B] for t in batch)
+                    total, _ = mlm_loss_sums(whole(part[0]), part)
+                    (total / count).backward()
+                    ref_loss += (total / count).item()
+                grads = {k: p.grad for k, p in whole.named_parameters()}
+                del whole, total
+            model = Bert(cfg, seed=0, mesh=mesh)
+            if layers == 2:
+                ref = _ref_blocks(model, grads)
+                del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(mesh_param_groups(model, mesh), lr=1e-4,
+                                  weight_decay=1e-4),
+                named_parameters=model.named_parameters())
+            state = create_gspmd_train_state(model, opt, mesh)
+            step = make_gspmd_train_step(model, opt, mesh,
+                                         loss_fn=mlm_loss_sums)
+            shard = tuple(shard_tokens(t, mesh) for t in batch)
+            res = _gspmd_steps(
+                torch, hvd, mesh, model, state, step, shard,
+                1 if layers == 2 else 4, rank == 0 and layers > 2,
+                (lambda m: _block_gaps(torch, m, ref, n, ("wk.bias",)))
+                if ref else None)
+            want_counts, want_launches = bert_mp_expected(axes, layers)
+            res.update(axes=axes, ref_loss=ref_loss, shards=shards,
+                       want_counts=want_counts, want_launches=want_launches,
+                       flops_per_token=bert_flops(cfg, BMP_T),
+                       n_layers=layers, seconds=time.perf_counter() - t0)
+            (runs if layers == 2 else full).append(res)
+            del state, step, opt, model, ref, shard, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs, "full": full}, f)
+    hvd.shutdown()
+    return 0
+
+
+def bert_mp_phase(torch, card):
+    """The ``bert-mp`` phase (module doc). Returns rank 0's launches of
+    B1-B3 in the second step of its first 24-layer run (unprofiled; its
+    counts set to 0 just before it), or zeros on one card."""
+    total = dict.fromkeys(["fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("bert-mp", "one card: fsdp and tp split the model over 2 or "
+                       "more ranks; on one card the phase runs nothing")
+        return total
+    n = 4 if cards >= 4 else 2
+    t0 = time.perf_counter()
+    env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+           if n < cards else None)
+    ranks = run_world("bert-mp", n, env)
+    for res in ranks:
+        for run in res["runs"] + res["full"]:
+            _check_mp_run(f"{n} ranks, {run['axes']}, {run['n_layers']} "
+                          f"layers, rank {res['rank']}", run)
+    for i, run in enumerate(ranks[0]["runs"]):
+        what = f"{n} ranks, {run['axes']}, BERT-Large widths, 2 layers"
+        rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+        worst, whole, key_bias, worst_name = run["first"]
+        if not rel <= MP_LOSS_RTOL:
+            raise AssertionError(f"{what}: first loss {run['losses'][0]} vs "
+                                 f"the whole model's {run['ref_loss']}")
+        if not worst <= MP_GRAD_NORMWISE:
+            raise AssertionError(f"{what}: a gathered gradient is off the "
+                                 f"whole model's by {worst:.4f} normwise "
+                                 f"({worst_name})")
+        log("bert-mp", f"{what}, {BMP_B} x {BMP_T} tokens a data shard, 15 %"
+                       f" masked, MLM loss over the global count, AdamW(1e-4)"
+                       f", one step: loss {run['losses'][0]:.6f} vs the whole"
+                       f" model's {run['ref_loss']:.6f} (rel {rel:.2e}, gate "
+                       f"{MP_LOSS_RTOL}); gathered gradients vs the whole "
+                       f"model's: worst tensor {worst:.2e} normwise "
+                       f"({worst_name}), all {whole:.2e} (gate 2^-5; the key "
+                       f"biases, 0 in exact "
+                       f"arithmetic, apart: norm {key_bias:.2e}); "
+                       f"collectives "
+                       f"{run['counts'][0]}; B1-B3 {run['launches'][0]}; "
+                       f"blocks bit-identical on their holders; "
+                       f"{run['seconds']:.1f} s; on {card}")
+    total = dict(ranks[0]["full"][0]["launches"][1])
+    for j, run in enumerate(ranks[0]["full"]):
+        what = (f"{n} ranks, {run['axes']}, BERT-Large, {run['n_layers']} "
+                f"layers")
+        if not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"{what}: loss did not fall: "
+                                 f"{run['losses']}")
+        step_s, per_gpu, mfu = _step_rates(
+            run, n, run["shards"] * BMP_B * BMP_T, run["flops_per_token"])
+        peak = max(r["full"][j]["peak_gb"] for r in ranks)
+        log("bert-mp", f"{what}, {BMP_B} x {BMP_T} tokens a data shard, "
+                       f"remat off, AdamW(1e-4): losses {run['losses']}; "
+                       f"step {step_s * 1e3:.1f} ms (first "
+                       f"{run['times'][0] * 1e3:.1f} ms, profiled "
+                       f"{run['times'][-1] * 1e3:.1f} ms); {per_gpu:.0f} "
+                       f"tokens/s/GPU; MFU {mfu:.1%} of 989 TFLOP/s at "
+                       f"{run['flops_per_token'] / 1e9:.2f} GFLOP a token "
+                       f"(bert_flops); peak {peak:.1f} GB (worst rank); "
+                       f"collectives a step {run['counts'][0]}; B1-B3 a step"
+                       f" {run['launches'][0]}; blocks bit-identical on "
+                       f"their holders; {run['seconds']:.1f} s; on {card}")
+        log("bert-mp", f"{what}, rank 0, step 4 under torch.profiler: "
+                       f"{run['profile']}")
+    log("bert-mp", f"{n} ranks: {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -2884,16 +3731,11 @@ def main():
         if any(w in line for w in PTXAS_LINES):
             print("  " + line.strip())
     check_ptxas(_build.build_log)
-    adasum_launches = adasum_phase(torch, card)
-    collectives_launches = collectives_phase(torch, card)
-    context_launches = context_phase(torch, card)
-    ep_launches = mixtral_ep_phase(torch, card)
-    t0 = time.perf_counter()
-    mp_launches = model_parallel_phase(torch, card)
-    log("model-parallel", f"phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    pp_launches = pipeline_phase(torch, card)
-    log("pipeline", f"phase {time.perf_counter() - t0:.1f} s")
+    # the one-card phases on card 0; on four cards, beside them, the 2-rank
+    # worlds of LANE_PHASES on cards 2 and 3
+    lane = (prefetch_worlds(LANE_PHASES) if torch.cuda.device_count() >= 4
+            else None)
+    t_one = time.perf_counter()
 
     big = dict(B=2, Tq=2048, Tk=2048, H=32, D=128, causal=True,
                lengths=None, seed=0)
@@ -3043,6 +3885,33 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mixtral_launches = mixtral_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("one-card", f"phases 5-12, 14 and 16: "
+                    f"{time.perf_counter() - t_one:.1f} s; this process "
+                    f"keeps {torch.cuda.memory_reserved() / 1e9:.1f} GB "
+                    f"reserved on card 0")
+    if lane is not None:
+        lane.join()
+    phase_s = {}
+
+    def timed(name, phase):
+        t0 = time.perf_counter()
+        out = phase(torch, card)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        log(name, f"phase {phase_s[name]} s")
+        return out
+
+    adasum_launches = timed("adasum", adasum_phase)
+    collectives_launches = timed("collectives", collectives_phase)
+    context_launches = timed("context", context_phase)
+    ep_launches = timed("mixtral-ep", mixtral_ep_phase)
+    mp_launches = timed("model-parallel", model_parallel_phase)
+    pp_launches = timed("pipeline", pipeline_phase)
+    mmp_launches = timed("mixtral-mp", mixtral_mp_phase)
+    bmp_launches = timed("bert-mp", bert_mp_phase)
+    log("phases", f"multi-card phases {phase_s}; whole script "
+                  f"{time.perf_counter() - T_START:.1f} s")
     errs.update(fused_errs)
     ms.update(fms)
     library.update(flib)
@@ -3054,7 +3923,9 @@ def main():
                       "mixtral": mixtral_launches[name],
                       "mixtral-ep": ep_launches[name],
                       "model-parallel": mp_launches[name],
-                      "pipeline": pp_launches[name]}
+                      "pipeline": pp_launches[name],
+                      "mixtral-mp": mmp_launches[name],
+                      "bert-mp": bmp_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name]}
@@ -3091,4 +3962,8 @@ if __name__ == "__main__":
         sys.exit(model_parallel_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--pipeline-worker"]:
         sys.exit(pipeline_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mixtral-mp-worker"]:
+        sys.exit(mixtral_mp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--bert-mp-worker"]:
+        sys.exit(bert_mp_worker(sys.argv[2]))
     sys.exit(main())

@@ -21,7 +21,10 @@ split on dim 1); :func:`llama_params_to_flax` takes whole tensors, which
 ``sharding.full_state_dict`` gathers from the blocks.
 
 :func:`mixtral_params_from_flax` reads a flax ``Mixtral`` the same way and
-keeps only one ep rank's slice of each expert bank.
+keeps only one ep rank's slice of each expert bank, or, under a mesh, one
+rank's ``[E/ep, D/fsdp, M/tp]`` block of each; :func:`bert_params_from_flax`
+takes a mesh too. The inverses take whole tensors
+(``sharding.full_state_dict``).
 
 The ResNet and BERT pairs (:func:`resnet_params_from_flax`,
 :func:`bert_params_from_flax` and their inverses) do the same for those
@@ -37,8 +40,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .models.bert import Bert
 from .models.llama import logical_names, resolve_scan_layers
-from .parallel.sharding import placement
+from .models.mixtral import logical_names as mixtral_logical_names
+from .parallel.sharding import placement, placement_of
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w1", "w2", "w3")
@@ -149,12 +154,17 @@ def llama_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
 # ----------------------------------------------------------------- Mixtral
 
 def mixtral_params_from_flax(params: Dict, cfg, ep_rank: int = 0,
-                             ep_size: int = 1) -> Dict[str, torch.Tensor]:
+                             ep_size: int = 1,
+                             mesh=None) -> Dict[str, torch.Tensor]:
     """A flax ``Mixtral``'s ``params`` → the port's ``state_dict`` for the
     rank at ep index ``ep_rank`` of ``ep_size``: the router kernel ``[D,
     E]`` transposed to ``[E, D]``, and of each expert bank (``w1``, ``w3``
     ``[E, D, M]``, ``w2`` ``[E, M, D]``, the port's layout too) only the
-    experts ``[ep_rank E / ep_size, (ep_rank + 1) E / ep_size)``."""
+    experts ``[ep_rank E / ep_size, (ep_rank + 1) E / ep_size)``. With
+    ``mesh`` (and ``ep_rank``, ``ep_size`` left alone), this rank's block
+    of every parameter on it, as ``models.mixtral.Mixtral`` built under
+    that mesh holds it: ``[E/ep, D/fsdp, M/tp]`` of each bank, the router
+    split over fsdp on ``D``, the rest as the Llama's."""
     E = cfg.n_experts
     if E % ep_size:
         raise ValueError(f"experts {E} not divisible by ep size {ep_size}")
@@ -164,8 +174,13 @@ def mixtral_params_from_flax(params: Dict, cfg, ep_rank: int = 0,
         sd[pre + "moe.router.weight"] = _np(b["moe"]["router"]["kernel"]).T
         for n in _MLP:
             sd[pre + f"moe.{n}"] = _np(b["moe"][n])[lo:hi]
-    return _tensors(_decoder_from_flax(params.get("params", params), cfg,
-                                       moe))
+    sd = _tensors(_decoder_from_flax(params.get("params", params), cfg, moe))
+    if mesh is None:
+        return sd
+    if ep_size != 1:
+        raise ValueError("pass ep_rank and ep_size, or mesh, not both")
+    return {k: placement(mesh, mixtral_logical_names(k), v.shape).block(v)
+            .contiguous() for k, v in sd.items()}
 
 
 def mixtral_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
@@ -288,9 +303,12 @@ _BERT_DENSE = ("wq", "wk", "wv", "wo", "ffn_in", "ffn_out")
 _BERT_NORMS = ("attn_norm", "ffn_norm")
 
 
-def bert_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+def bert_params_from_flax(params: Dict, cfg,
+                          mesh=None) -> Dict[str, torch.Tensor]:
     """flax BERT ``params`` (optionally under a ``"params"`` key) -> the
-    port's ``state_dict`` (f32 CPU tensors); dense kernels transposed."""
+    port's ``state_dict`` (f32 CPU tensors); dense kernels transposed.
+    With ``mesh``, this rank's block of each parameter on it, as
+    ``models.bert.Bert`` built under that mesh holds it."""
     p = params.get("params", params)
     sd = {"tok_embedding": _np(p["tok_embedding"]),
           "pos_embedding": _np(p["pos_embedding"])}
@@ -312,7 +330,15 @@ def bert_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
             norm(pre + n + ".", layer[n])
     dense("mlm_transform.", p["mlm_transform"])
     norm("mlm_norm.", p["mlm_norm"])
-    return _tensors(sd)
+    sd = _tensors(sd)
+    if mesh is None:
+        return sd
+    # each block as the model holds it: the placements of a model of
+    # shapes alone (the LayerNorms have none: whole)
+    shell = Bert(cfg, device="meta", mesh=mesh)
+    return {k: (placement_of(p).block(sd[k]) if placement_of(p) is not None
+                else sd[k]).contiguous()
+            for k, p in shell.named_parameters()}
 
 
 def bert_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> Dict:

@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.optim.adamw import adamw as _torch_adamw
 
 
@@ -308,13 +309,43 @@ def _factored_dims(shape, min_dim_size_to_factor: int):
     return int(order[-2]), int(order[-1])
 
 
+def _whole_sum(x: torch.Tensor, place, dims) -> torch.Tensor:
+    """``x``, sums over ``dims`` of this rank's block of a tensor placed by
+    ``place`` (a ``sharding.Placement``, or None for a whole tensor), as
+    sums over those dims of the whole tensor: all-reduced over the axis of
+    each such dim that is split, in dim order, over that axis's row (the
+    ranks that hold the tensor's other blocks along it, every other
+    coordinate fixed). Every rank posts the same all-reduces in the same
+    order."""
+    if place is None:
+        return x
+    for d in sorted(dims):
+        a = place.axes[d]
+        if a is not None and a.size > 1:
+            x = x.contiguous()
+            dist.all_reduce(x, group=a.group)
+    return x
+
+
 def _adafactor_update(p: torch.Tensor, g: torch.Tensor, state: Dict,
                       group: Dict, lr: float) -> torch.Tensor:
     """The Adafactor update ``u`` (``p -= u``) of one tensor, optax's
     ``scale_by_factored_rms`` -> ``clip_by_block_rms`` ->
     ``scale_by_learning_rate`` -> ``scale_by_param_block_rms`` ->
-    ``add_decayed_weights``."""
-    dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+    ``add_decayed_weights``.
+
+    optax applies each rule to the whole tensor, so ``p`` may be one block
+    of a tensor split over mesh axes (its ``sharding.Placement``, e.g. an
+    expert bank ``[E/ep, D/fsdp, M/tp]``): the factored dims come from the
+    whole shape, and every mean (the row and column second moments, their
+    ``row_col_mean``, the update's and the parameter's block RMS) is a sum
+    over the whole tensor (:func:`_whole_sum`) divided by the whole
+    count. The moments ``v_row``, ``v_col`` and ``v`` are this rank's
+    blocks of optax's."""
+    place = getattr(p, "placement", None)
+    shape = tuple(place.shape) if place is not None else tuple(p.shape)
+    numel = float(np.prod(shape))
+    dims = _factored_dims(shape, group["min_dim_size_to_factor"])
     if "step" not in state:
         state["step"] = 0
         if dims is None:
@@ -333,19 +364,27 @@ def _adafactor_update(p: torch.Tensor, g: torch.Tensor, state: Dict,
         u = g * state["v"].rsqrt()
     else:
         d1, d0 = dims
-        state["v_row"] = decay * state["v_row"] + (1 - decay) * g2.mean(d0)
-        state["v_col"] = decay * state["v_col"] + (1 - decay) * g2.mean(d1)
+        row = _whole_sum(g2.sum(d0), place, (d0,)) / shape[d0]
+        col = _whole_sum(g2.sum(d1), place, (d1,)) / shape[d1]
+        state["v_row"] = decay * state["v_row"] + (1 - decay) * row
+        state["v_col"] = decay * state["v_col"] + (1 - decay) * col
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = state["v_row"].mean(reduced_d1, keepdim=True)
+        row_col_mean = _whole_sum(
+            state["v_row"].sum(reduced_d1, keepdim=True), place,
+            (d1,)) / shape[d1]
         row_factor = (state["v_row"] / row_col_mean).rsqrt()
         col_factor = state["v_col"].rsqrt()
         u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+    every = range(len(shape))
+    # the update's and the parameter's squared sums, posted together
+    sq = _whole_sum(torch.stack([u.square().sum(),
+                                 p.float().square().sum()]), place, every)
     if group["clipping_threshold"] is not None:
-        u = u / torch.clamp_min(u.square().mean().sqrt()
+        u = u / torch.clamp_min((sq[0] / numel).sqrt()
                                 / group["clipping_threshold"], 1.0)
     u = u * lr
     if group["multiply_by_parameter_scale"]:
-        u = u * torch.clamp_min(p.float().square().mean().sqrt(), 1e-3)
+        u = u * torch.clamp_min((sq[1] / numel).sqrt(), 1e-3)
     if group["weight_decay"] is not None:
         u = u + group["weight_decay"] * p.float()
     return u

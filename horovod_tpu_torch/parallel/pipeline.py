@@ -106,18 +106,23 @@ def pipeline(stage_fn: Callable, stage_params, x_microbatches: torch.Tensor,
     return torch.stack(outs if idx == n - 1 else [y] * M)
 
 
-def _dp_average(grads: List[torch.Tensor], loss: torch.Tensor,
+def _dp_average(grads: List[Optional[torch.Tensor]], loss: torch.Tensor,
                 dp: Optional[Axis]):
     """The stage gradients and the loss averaged over the dp axis, one
-    all-reduce of the flat concatenation."""
+    all-reduce of the flat concatenation (a None gradient, of a frozen
+    parameter, stays None)."""
     if dp is None or dp.size == 1:
         return grads, loss
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
+    live = [g for g in grads if g is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in live]
                      + [loss.reshape(1).float()])
     dist.all_reduce(flat, group=dp.group)
     flat /= dp.size
     out, off = [], 0
     for g in grads:
+        if g is None:
+            out.append(None)
+            continue
         out.append(flat[off:off + g.numel()].view_as(g).to(g.dtype))
         off += g.numel()
     return out, flat[-1]
@@ -137,7 +142,8 @@ def pipeline_value_and_grad(stage_fn: Callable, loss_fn: Callable,
     scores the last stage's ``[M, ...]`` outputs; only the last rank's
     counts, and it is masked, not summed over pp, before the backward (a
     sum would seed one cotangent a rank). ``grads`` are this rank's stage
-    gradients, in :func:`stage_parameters` order.
+    gradients, in :func:`stage_parameters` order; a parameter that does
+    not require a gradient (frozen by a deferred cadence) gets None.
 
     ``dp_axis`` is the dp x pp seam: each stage's parameters are replicas
     along it, and the gradients and the loss are averaged over it after
@@ -152,7 +158,8 @@ def pipeline_value_and_grad(stage_fn: Callable, loss_fn: Callable,
             outs = pipeline(stage_fn, stage_params, x_microbatches, axis)
             loss = loss_fn(outs, targets)
             (loss if last else loss * 0.0).backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+        grads = [p.grad if p.grad is not None else
+                 torch.zeros_like(p) if p.requires_grad else None
                  for p in params]
         for p, g in zip(params, kept):
             p.grad = g
@@ -171,13 +178,16 @@ def pipeline_1f1b_value_and_grad(stage_fn: Callable, loss_fn: Callable,
     stage from the saved input (at most ``2 (n - 1) + 1`` inputs live),
     for ``M + 2 (n - 1)`` ticks. ``loss_fn(y_mb, target_mb)`` scores one
     microbatch; the loss and gradients are those of the mean over the
-    microbatches. ``stage_fn`` keeps ``x``'s shape and dtype."""
+    microbatches, None for a parameter that does not require a gradient.
+    ``stage_fn`` keeps ``x``'s shape and dtype."""
     def vg(stage_params, x_microbatches, targets):
         n, idx = axis.size, axis.index
         last = idx == n - 1
         M = x_microbatches.shape[0]
         K = 2 * (n - 1) + 1
-        params = stage_parameters(stage_params)
+        # a frozen parameter (requires_grad off) takes no gradient: None
+        params = [p for p in stage_parameters(stage_params)
+                  if p.requires_grad]
         grads = [torch.zeros_like(p) for p in params]
         zeros = torch.zeros_like(x_microbatches[0])
         fwd_buf, bwd_buf = zeros, zeros
@@ -214,6 +224,9 @@ def pipeline_1f1b_value_and_grad(stage_fn: Callable, loss_fn: Callable,
                     dx = d[-1]
             (fwd_buf,) = shift(axis, [y], 1)
             (bwd_buf,) = shift(axis, [dx], -1)
-        return _replicate(lacc, axis, last), grads
+        live = iter(grads)
+        return _replicate(lacc, axis, last), [
+            next(live) if p.requires_grad else None
+            for p in stage_parameters(stage_params)]
 
     return vg

@@ -8,8 +8,11 @@ parameter and the model calls those collectives itself; this module is
 the explicit counterpart of what the partitioner inserts:
 
 - :func:`placement` turns a parameter's logical names into its
-  :class:`Placement`: which dims are split over which mesh axes, and this
-  rank's block;
+  :class:`Placement`: which dims are split over which mesh axes (one axis
+  a dim, up to one dim an axis: an expert bank ``[E, D, M]`` is
+  ``[E/ep, D/fsdp, M/tp]``), and this rank's block;
+  :func:`kernel_placement` does it for a dense weight named in flax's
+  order, and :func:`bias_placement` for its bias;
 - fsdp (ZeRO-3): :func:`gather_param` all-gathers a weight over its fsdp
   row where it is used, and the backward reduce-scatters (sums) its
   gradient back to the shards (:class:`_FsdpGather`). A weight the module
@@ -151,6 +154,35 @@ def placement(mesh: Optional[Mesh], names: Sequence[Optional[str]],
     return Placement(shape, tuple(axes))
 
 
+def kernel_placement(mesh: Optional[Mesh], names: Sequence[Optional[str]],
+                     fan_in: int, fan_out: int,
+                     rules=LOGICAL_RULES) -> Placement:
+    """The placement of a port dense weight ``[out, in]`` whose flax kernel
+    ``[in, out]`` carries the logical ``names`` (flax's order). The rules
+    run in flax's dim order, so flax's first-use rule picks the same dim:
+    BERT's ``mlm_transform`` kernel ``("embed", "embed_fsdp")``, both
+    names on fsdp, is split on its ``in`` dim (flax dim 0, the port's dim
+    1) and whole on the other."""
+    k = placement(mesh, names, (fan_in, fan_out), rules)
+    return Placement(k.shape[::-1], k.axes[::-1])
+
+
+def bias_placement(weight: Placement) -> Placement:
+    """The placement of the bias of a dense weight placed as ``weight``
+    (``[out, in]``). JAX names no bias, so XLA replicates every one. A
+    column-parallel layer's output (its ``out`` dim split over tp) is split
+    over tp, and so is the gradient of a bias added to it: whole only
+    after the tp ranks' slices are joined. The port holds such a bias split
+    with the output, each tp rank its slice: its gradient is then whole
+    where it is computed, and since AdamW is elementwise the slices take
+    the same steps as JAX's replicated bias. Any other bias is whole (a
+    row-parallel layer adds it once, after the all-reduce of the partial
+    products)."""
+    a = weight.axes[0]
+    split = a is not None and a.name == "tp"
+    return Placement(weight.shape[:1], (a if split else None,))
+
+
 def set_placement(p: torch.nn.Parameter, place: Placement) -> None:
     p.placement = place
 
@@ -190,8 +222,12 @@ def token_shards(mesh: Mesh) -> int:
 def gradient_axes(mesh: Mesh, p: torch.Tensor) -> Tuple[str, ...]:
     """The axes along which the ranks that sum ``p``'s gradient agree:
     those ``p`` is split over, and tp and pp, whose ranks hold different
-    blocks or equal copies (a tp-replicated gradient is already whole on
-    every tp rank after ``copy_to_tp``'s all-reduce)."""
+    blocks or equal copies. A tp-replicated gradient is already whole on
+    every tp rank: the tp ranks compute it from equal values (the input of
+    a layer after ``copy_to_tp``'s all-reduce backward, or the output after
+    ``reduce_from_tp``), which holds for every replicated parameter of the
+    port's models because a column-parallel bias, whose gradient would be
+    a tp slice, is held split (:func:`bias_placement`)."""
     place = placement_of(p)
     own = place.sharded_axes if place is not None else ()
     return tuple(a for a in mesh.axis_names
@@ -245,8 +281,9 @@ class _FsdpGather(torch.autograd.Function):
 
 
 def gather_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``p`` as the module uses it, in ``dtype``: this rank's tp block,
-    gathered over fsdp if it is split over fsdp."""
+    """``p`` as the module uses it, in ``dtype``: this rank's tp and ep
+    block, gathered over fsdp along whichever dim fsdp splits (an expert
+    bank's ``embed``: dim 1 of ``w1``, dim 2 of ``w2``)."""
     place = placement_of(p)
     dim = place.dim_of("fsdp") if place is not None else None
     if dim is None:

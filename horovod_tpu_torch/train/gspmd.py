@@ -23,11 +23,15 @@ by the number of ranks that see different tokens, dp x fsdp x ep x sp.
 :func:`make_gspmd_deferred_train_step` is the two-program expert-update
 deferral of ``optimizer.moe_opt.deferred_pair``. ``scan_steps`` and the
 sentinel belong to a later slice (ROADMAP.md, section A).
+
+The objective is the next-token loss, or a ``loss_fn`` that sums a
+shard's terms and counts them (BERT's masked-LM loss,
+``losses.mlm_loss_sums``), divided by the global count.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -42,7 +46,7 @@ from ..parallel.sharding import (DATA_AXES, gradient_axes, holder_axes,
 from .dp import TrainState
 from .losses import next_token_loss  # noqa: F401  (the JAX module's loss)
 from .losses import vocab_parallel_nll
-from .step_builder import accumulate_gradients
+from .step_builder import Cadence, accumulate_gradients
 
 
 def _data_shards(mesh: Mesh):
@@ -219,25 +223,48 @@ def _sown_aux(model: torch.nn.Module) -> Optional[torch.Tensor]:
 
 
 def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
-               accum_steps: int = 1):
+               accum_steps: int = 1, loss_fn: Optional[Callable] = None):
     """The forward, backward and update of one step with ``optimizer``;
     returns the step's loss (module doc of :func:`make_gspmd_train_step`).
     """
     shards, world = token_shards(mesh), _ctx.size()
     a = accum_steps
+    tp = mesh.axis("tp") if axis_size(mesh, "tp") > 1 else None
+    # the ranks that see different tokens with this rank's tp index: a
+    # loss_fn's term counts are summed over them
+    counted = replica_set(mesh, ("tp", "pp")) if loss_fn is not None \
+        else None
 
-    def run(optimizer, tokens: torch.Tensor) -> torch.Tensor:
+    def run(optimizer, batch) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
         B, T = tokens.shape
         n = (B * _data_shards(mesh)[0]) * (T * axis_size(mesh, "sp") - 1)
         parts = []
 
-        def objective(logits, toks):
-            nll = _shard_nll_sum(logits, toks, mesh)
+        def next_token(logits, b, tp):
+            """The default objective: the next-token loss, whose global
+            count a microbatch's shape gives (n / a targets)."""
+            return _shard_nll_sum(logits, b, mesh), n / a
+
+        def terms(logits, b):
+            """This shard's summed loss, the factor its backward takes and
+            the divisor of its share of the reported loss."""
+            total, count = (loss_fn or next_token)(logits, b, tp)
+            if isinstance(count, torch.Tensor):
+                # one scalar all-reduce over the data axes and sp, before
+                # the backward: the divisor is the microbatch's global count
+                count = _ops.allreduce(count.detach().float().reshape(1),
+                                       _ops.Sum, process_set=counted)[0]
+                count = count.clamp_min(1.0)
+            return total, shards / count, count * a
+
+        def objective(logits, b):
+            nll, scale, div = terms(logits, b)
             aux = _sown_aux(model)
-            obj = nll * (shards * a / n)
-            parts.append([nll.detach()])
+            obj = nll * scale
+            parts.append([nll.detach().float() / div])
             if aux is not None and aux_weight:
                 obj = obj + aux_weight * aux
                 parts[-1].append(aux.detach().float())
@@ -245,14 +272,14 @@ def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
 
         with set_mesh(mesh):
             if a > 1:
-                accumulate_gradients(model, objective, tokens, tokens, a)
+                accumulate_gradients(model, objective, tokens, batch, a)
             else:
-                objective(model(tokens), tokens).backward()
+                objective(model(tokens), batch).backward()
         optimizer.step()
         tot = _ops.allreduce(torch.stack([sum(x) for x in zip(*parts)]),
                              _ops.Sum)
         # every tp rank holds the same sums
-        loss = tot[0] / (n * axis_size(mesh, "tp"))
+        loss = tot[0] / axis_size(mesh, "tp")
         if len(tot) > 1:
             loss = loss + aux_weight * tot[1] / (world * a)
         return loss
@@ -262,11 +289,14 @@ def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
 
 def make_gspmd_train_step(model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer, mesh: Mesh, *,
+                          loss_fn: Optional[Callable] = None,
                           aux_weight: float = 0.0,
                           accum_steps: Optional[int] = None):
-    """The LM train step over ``mesh``: ``step(state, tokens) -> (state,
-    loss)``, ``tokens`` this rank's ``[B/(dp fsdp ep), T/sp]`` shard of
-    the global batch (:func:`shard_tokens`).
+    """The train step over ``mesh``: ``step(state, batch) -> (state,
+    loss)``, ``batch`` this rank's ``[B/(dp fsdp ep), T/sp]`` shard of the
+    global tokens (:func:`shard_tokens`), or a tuple whose first element
+    is that shard and whose others are shaped alike (an MLM's labels and
+    mask, each cut by :func:`shard_tokens`). The model reads the tokens.
 
     The objective is the mean over the ranks of each rank's mean
     next-token loss plus ``aux_weight`` x the sum of its layers' router aux
@@ -282,9 +312,24 @@ def make_gspmd_train_step(model: torch.nn.Module,
     backward have already brought the other shards' contributions to a
     block. The returned loss is the objective.
 
+    ``loss_fn`` replaces the next-token loss, as JAX's ``loss_fn(logits,
+    tokens)`` does: ``loss_fn(logits, batch, tp) -> (total, count)``, with
+    ``logits`` this shard's (split over the vocabulary on the tp axis
+    ``tp``, None without one), ``total`` the sum of the shard's loss terms
+    (equal on every tp rank) and ``count`` their number, a tensor
+    (``losses.mlm_loss_sums``: the masked positions). The loss is the
+    global sum over the global count, as JAX's mean over the global batch:
+    the counts are summed in one scalar all-reduce over the data axes and
+    sp before the backward, which back-propagates ``S / count x total``. A
+    mean of the shards' means would miss JAX whenever their counts differ.
+    A ``count`` that is a number is the global count already, summed by no
+    collective: the built-in next-token loss returns its microbatch's
+    ``N / a`` so.
+
     ``accum_steps = a`` runs this rank's shard as ``a`` microbatches
     (``step_builder.accumulate_gradients``), each back-propagating ``a S /
-    N`` times its summed loss; the optimizer must be made with
+    N`` times its summed loss (with a ``loss_fn``, ``S / count`` of the
+    microbatch's global count); the optimizer must be made with
     ``backward_passes_per_step = a``, so it reduces once, after the last,
     and divides by ``a``: the mean of the microbatches' mean losses, as
     JAX's accumulation takes it.
@@ -301,62 +346,39 @@ def make_gspmd_train_step(model: torch.nn.Module,
         raise ValueError(
             f"accum_steps={a} needs an optimizer made with "
             f"backward_passes_per_step={a} (it has {passes})")
-    run = _step_body(model, mesh, aux_weight, a)
+    run = _step_body(model, mesh, aux_weight, a, loss_fn)
 
-    def step(state: TrainState, tokens: torch.Tensor):
-        return state._replace(step=state.step + 1), run(optimizer, tokens)
+    def step(state: TrainState, batch):
+        return state._replace(step=state.step + 1), run(optimizer, batch)
 
     return step
 
 
 def make_gspmd_deferred_train_step(model: torch.nn.Module, pair: DeferredPair,
-                                   mesh: Mesh, *, aux_weight: float = 0.0):
+                                   mesh: Mesh, *,
+                                   loss_fn: Optional[Callable] = None,
+                                   aux_weight: float = 0.0):
     """Two-step expert-update deferral: ``pair`` is
     ``optimizer.moe_opt.deferred_pair``'s result, and the state's optimizer
-    was built from ``pair.apply`` (:func:`create_gspmd_train_state`). A
-    step counter on the host, seeded from ``state.step``, runs ``every -
-    1`` skip steps, then one apply step.
+    was built from ``pair.apply`` (:func:`create_gspmd_train_state`). The
+    host cadence (``step_builder.Cadence``, shared with the pipeline step)
+    runs ``every - 1`` skip steps, then one apply step, its counter seeded
+    from ``state.step``. On a skip step the bank that ``pair.skip``
+    freezes takes no gradient and does not move, on any mesh: under fsdp
+    its gather on use has no backward, so no reduce-scatter is posted for
+    it; the dense parameters get their AdamW step on every step. The
+    apply step is a normal step with the bank's ``every``-scaled update of
+    the current gradient. ``loss_fn`` as :func:`make_gspmd_train_step`'s.
+    """
+    run = _step_body(model, mesh, aux_weight, 1, loss_fn)
+    cadence = Cadence(pair)
 
-    On a skip step the parameters of every group that ``pair.skip``
-    freezes (the expert banks) take no gradient: they are set
-    ``requires_grad_(False)`` for the step, so autograd computes no dW for
-    them, ``DistributedOptimizer`` reduces nothing for them, their
-    ``.grad`` stays None and the optimizer leaves them and their state
-    alone. The dense parameters get their AdamW step on every step. This
-    is the port's counterpart of the JAX skip program, in which XLA drops
-    the dead dW products and aliases the donated bank. The apply step is a
-    normal step with the bank's ``every``-scaled update of the current
-    gradient."""
-    if _model_axes(mesh) != _model_axes(None):
-        raise NotImplementedError(
-            "the deferred expert-update step on an fsdp or tp axis of size "
-            "> 1 comes with slice 10, with Mixtral's fsdp and tp (ROADMAP.md,"
-            " section A)")
-    run = _step_body(model, mesh, aux_weight)
-    counter = {"n": None}
-
-    def step(state: TrainState, tokens: torch.Tensor):
+    def step(state: TrainState, batch):
         opt = state.optimizer
-        if counter["n"] is None:
+        if cadence.n is None:
             _check_optimizer(opt, model, mesh)
-            labels = {g.get("label") for g in opt.param_groups}
-            if not labels <= set(pair.apply.transforms):
-                raise ValueError("the state's optimizer was not built from "
-                                 "pair.apply")
-            counter["n"] = int(state.step)
-        counter["n"] += 1
-        frozen = []
-        if counter["n"] % pair.every:
-            frozen = [p for g in opt.param_groups
-                      if pair.skip.transforms[g["label"]].get("frozen")
-                      for p in g["params"]]
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
-            loss = run(opt, tokens)
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
+        with cadence.step(opt, state.step):
+            loss = run(opt, batch)
         return state._replace(step=state.step + 1), loss
 
     return step

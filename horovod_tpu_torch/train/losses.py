@@ -4,7 +4,9 @@ Counterparts of ``horovod_tpu/train/gspmd.py::next_token_loss``,
 ``horovod_tpu/models/bert.py::mlm_loss`` and the masked cross entropy of
 ``benchmarks/bert.py``, and :func:`vocab_parallel_nll`, the loss over
 logits split over the vocabulary on a tp axis, which XLA derives in JAX
-from the vocab-sharded logits.
+from the vocab-sharded logits. :func:`mlm_loss_sums` is the masked-LM
+loss in the form the GSPMD step's ``loss_fn`` takes: a shard's sum and
+count, divided there by the global count.
 """
 
 from __future__ import annotations
@@ -76,12 +78,26 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
 
 
 def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
+             mask: torch.Tensor, axis: Optional[Axis] = None) -> torch.Tensor:
     """Masked-LM cross entropy over the positions where ``mask`` is set
-    (``horovod_tpu/models/bert.py::mlm_loss``)."""
-    nll = vocab_parallel_nll(logits, labels)
+    (``horovod_tpu/models/bert.py::mlm_loss``); on a tp ``axis`` the
+    logits are this rank's vocab block (:func:`vocab_parallel_nll`)."""
+    total, count = mlm_loss_sums(logits, (None, labels, mask), axis)
+    return total / count.clamp_min(1.0)
+
+
+def mlm_loss_sums(logits: torch.Tensor, batch,
+                  axis: Optional[Axis] = None):
+    """The masked-LM loss as the GSPMD step's ``loss_fn`` takes it
+    (``train.make_gspmd_train_step``): ``batch`` is ``(tokens, labels,
+    mask)``, this rank's shards, and the result ``(total, count)``, the
+    f32 cross entropy summed over the positions where ``mask`` is set and
+    their number. The step divides by the count summed over the data
+    shards, as JAX's ``mlm_loss`` divides by the global batch's."""
+    _, labels, mask = batch
+    nll = vocab_parallel_nll(logits, labels, axis)
     m = mask.to(nll.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return (nll * m).sum(), m.sum()
 
 
 def masked_label_loss(logits: torch.Tensor,

@@ -2,7 +2,10 @@
 
 Counterpart of ``horovod_tpu/train/step_builder.py::accumulate_gradients``
 and of its ``PipelineTrainState``, ``create_pipeline_train_state`` and
-``make_pipeline_train_step`` (at the end of this module).
+``make_pipeline_train_step`` (at the end of this module), with
+:class:`Cadence`, the host side of the deferred expert-update pair that
+JAX's ``build_program_set`` and ``make_dispatch`` share between its step
+kinds.
 The JAX package accumulates inside one compiled step with a ``lax.scan``;
 here the microbatches run one after another, each with its own forward and
 backward, and ``p.grad`` accumulates their gradients.
@@ -16,6 +19,7 @@ per step, of the mean gradient.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -64,6 +68,57 @@ def accumulate_gradients(model: torch.nn.Module,
     return total / a
 
 
+# ------------------------------------------------- the deferred cadence
+
+class Cadence:
+    """The host side of a ``optimizer.moe_opt.DeferredPair``, shared by
+    ``train.make_gspmd_deferred_train_step`` and
+    :func:`make_pipeline_train_step`: a step counter, seeded from the
+    state's step on the first call (so a resumed job keeps its phase, as
+    JAX's ``make_dispatch`` seeds it), runs ``every - 1`` skip steps, then
+    one apply step.
+
+    On a skip step the parameters of every group that ``pair.skip``
+    freezes (the expert bank) take no gradient: they are set
+    ``requires_grad_(False)`` for the step, so autograd computes no dW for
+    them, ``DistributedOptimizer`` reduces nothing for them, their
+    ``.grad`` stays None and the optimizer leaves them and their state
+    alone. Every other parameter gets its step. This is the port's
+    counterpart of JAX's skip program, in which XLA drops the dead dW
+    products and aliases the donated bank. An apply step is a normal step
+    with the optimizer built from ``pair.apply``."""
+
+    def __init__(self, pair):
+        self.pair = pair
+        self.n = None
+
+    @contextlib.contextmanager
+    def step(self, optimizer, state_step: int):
+        """One step of the cadence around the body of the ``with``; yields
+        the parameters frozen in it (none on an apply step).
+        ``optimizer``'s groups must carry ``pair.apply``'s labels."""
+        pair = self.pair
+        if self.n is None:
+            labels = {g.get("label") for g in optimizer.param_groups}
+            if not labels <= set(pair.apply.transforms):
+                raise ValueError("the state's optimizer was not built from "
+                                 "pair.apply")
+            self.n = int(state_step)
+        self.n += 1
+        frozen = []
+        if self.n % pair.every:
+            frozen = [p for g in optimizer.param_groups
+                      if pair.skip.transforms[g["label"]].get("frozen")
+                      for p in g["params"]]
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            yield frozen
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
+
+
 # ------------------------------------------------- pipeline-parallel step
 
 class PipelineTrainState(NamedTuple):
@@ -96,14 +151,19 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
     rank's: the same on every rank of the pp axis (stage 0 reads them, the
     last stage's targets score them), this rank's dp shard of the batch on
     a dp axis. ``optimizer`` is a torch optimizer over this rank's stage
-    parameters (the state's). ``pair=`` cadence is not ported for
-    pipelines (ROADMAP.md, section A)."""
+    parameters (the state's).
+
+    ``pair`` (an ``optimizer.moe_opt.DeferredPair``) runs the deferred
+    cadence (:class:`Cadence`), as JAX's apply and skip programs do:
+    ``optimizer`` must then be built from ``pair.apply``
+    (``moe_opt.optimizer_for(pair.apply, stage.named_parameters())``), and
+    on skip steps the stage parameters that ``pair.skip`` freezes take no
+    gradient and do not move, neither they nor their state. JAX's
+    sentinel does not compose with pipelines; the port has none."""
     from ..parallel.pipeline import (pipeline_1f1b_value_and_grad,
                                      pipeline_value_and_grad,
                                      stage_parameters)
-    if pair is not None:
-        raise NotImplementedError("pair= cadence with pipelines is queued "
-                                  "for a later slice (ROADMAP.md, section A)")
+    cadence = Cadence(pair) if pair is not None else None
     if schedule in ("interleaved", "1f1b"):
         if dp_axis_name is not None:
             raise ValueError(
@@ -119,12 +179,18 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
         raise ValueError(f"unknown schedule {schedule!r}: expected "
                          "'interleaved' (alias '1f1b') or 'gpipe'")
 
-    def step(state: PipelineTrainState, x_microbatches, targets):
+    def run(state: PipelineTrainState, x_microbatches, targets):
         loss, grads = vg(state.stage_params, x_microbatches, targets)
         for p, g in zip(stage_parameters(state.stage_params), grads):
             p.grad = g
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return state._replace(step=state.step + 1), loss
+
+    def step(state: PipelineTrainState, x_microbatches, targets):
+        if cadence is None:
+            return run(state, x_microbatches, targets)
+        with cadence.step(optimizer, state.step):
+            return run(state, x_microbatches, targets)
 
     return step

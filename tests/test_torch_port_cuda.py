@@ -36,6 +36,10 @@
   with log2(cross) launches of B4 and B5 against the plain composition; and
   alltoall and allgather, flat and staged, bit-exact against plain
   constructions from point-to-point sends and broadcasts.
+- Model parallelism of the other families on 2 GPUs: Mixtral on tp (the
+  tp ranks route alike; logits against the whole model), an expert bank
+  gathered over fsdp on its embed dim, and BERT on tp through B1-B3 on the
+  local heads (``-k "route_alike or bank_gather or local_heads"``).
 - ``ResNetTiny`` with SyncBatchNorm over NCCL on 2 and 4 GPUs against one
   process on the whole batch, with its all-reduces counted (``-k
   sync_batch_norm``).
@@ -1043,3 +1047,122 @@ def test_fsdp_gather_and_reduce_scatter_across_gpus(cuda, tmp_path):
     way): one all-gather and one reduce-scatter each."""
     for r in sharding_world(tmp_path):
         assert r["fsdp"] == [[True, True, 1, 1]] * 2
+
+
+_SLICE10_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.bert import Bert, BertConfig
+    from horovod_tpu_torch.models.mixtral import (Mixtral, MixtralConfig,
+                                                  router_load)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import create_mesh, sharding
+
+    out_dir, device, name = sys.argv[1], sys.argv[2], sys.argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    gap = lambda a, b: ((a.float() - b.float()).norm()
+                        / b.float().norm()).item()
+
+    # Mixtral on tp: the tp ranks route the same tokens alike, and the
+    # vocab-split logits are the whole model's.
+    cfg = MixtralConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                        n_kv_heads=2, hidden_dim=512, max_seq_len=512,
+                        remat=False, use_flash=True)
+    toks = torch.randint(0, 1024, (2, 512), generator=gen, device=dev)
+    with torch.no_grad():
+        logits = Mixtral(cfg, seed=0, mesh=create_mesh({"tp": n}))(toks)
+        whole = Mixtral(cfg, seed=0, mesh=None)
+        out["mixtral_gap"] = gap(logits, whole(toks).chunk(n, -1)[rank])
+    tp_model = Mixtral(cfg, seed=0, mesh=create_mesh({"tp": n}))
+    with torch.no_grad():
+        tp_model(toks)
+    out["tp_loads"] = router_load(tp_model)
+
+    # The bank's gather over fsdp on w2's embed dim (2), bf16 forward, f32
+    # reduce-scatter backward, against the whole bank.
+    fsdp = create_mesh({"fsdp": n})
+    W = torch.randn((8, 512, 256), generator=gen, device=dev)
+    G = [torch.randn(W.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1 + r), device=dev) for r in range(n)]
+    place = sharding.placement(fsdp, ("experts", "mlp", "embed"), W.shape)
+    shard = torch.nn.Parameter(place.block(W).clone())
+    sharding.set_placement(shard, place)
+    full = sharding.gather_param(shard, torch.bfloat16)
+    (full.float() * G[rank]).sum().backward()
+    want = place.block(sum(g.to(torch.bfloat16).float() for g in G))
+    out["bank"] = [place.dim_of("fsdp"),
+                   bool(torch.equal(full, W.to(torch.bfloat16))),
+                   bool(torch.equal(shard.grad, want))]
+
+    # BERT on tp: B1-B3 on the local heads with the key bias, the
+    # vocab-split logits against the whole model's.
+    bcfg = BertConfig(vocab_size=1024, dim=512, n_layers=2, n_heads=8,
+                      hidden_dim=1024, max_seq_len=512, remat=False,
+                      use_flash=True)
+    mask = torch.ones((2, 512), dtype=torch.bool, device=dev)
+    mask[1, 300:] = False
+    bert = Bert(bcfg, seed=0, mesh=create_mesh({"tp": n}))
+    fa.reset_launch_counts()
+    logits = bert(toks, mask)
+    logits.float().square().mean().backward()
+    out["bert_launches"] = {k: f.launches for k, f in fa.KERNELS.items()}
+    with torch.no_grad():
+        ref = Bert(bcfg, seed=0, mesh=None)(toks, mask).chunk(n, -1)[rank]
+    out["bert_gap"] = gap(logits.detach(), ref)
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+    hvd.shutdown()
+""")
+
+_SLICE10_RUNS: dict = {}
+
+
+def slice10_world(tmp_path):
+    """Each rank's results of ``_SLICE10_WORKER`` in a world of 2."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    if not _SLICE10_RUNS:
+        ranks = run_world(str(tmp_path), 2, "cuda", "slice10",
+                          _SLICE10_WORKER)
+        _SLICE10_RUNS["cuda"] = [json.loads(str(r["result"]))
+                                 for r in ranks]
+    return _SLICE10_RUNS["cuda"]
+
+
+def test_mixtral_tp_ranks_route_alike_across_gpus(cuda, tmp_path):
+    """``chip_smoke.py``'s ``mixtral-mp`` gate at a small width: the tp
+    ranks' routing counts are equal (a bf16 model split over tp need not
+    route as the whole model does: its residual stream differs in the last
+    bits, which moves near-tied choices); the vocab-split bf16 logits
+    within 2^-5 normwise of the whole model's (the tp all-reduces sum bf16
+    partial products in another order)."""
+    ranks = slice10_world(tmp_path)
+    for r in ranks:
+        assert r["tp_loads"] == ranks[0]["tp_loads"]
+        assert r["mixtral_gap"] <= 2 ** -5, r["mixtral_gap"]
+
+
+def test_bank_gather_on_its_embed_dim_across_gpus(cuda, tmp_path):
+    """``w2``'s ``[E, M, D]`` bank split over fsdp on dim 2: the gathered
+    bf16 bank equals the whole bank cast, and the block's gradient its
+    block of the sum of both ranks' f32 cotangents."""
+    for r in slice10_world(tmp_path):
+        assert r["bank"] == [2, True, True]
+
+
+def test_bert_tp_runs_b1_b3_on_local_heads_across_gpus(cuda, tmp_path):
+    """``bert-mp``'s gate at a small width: B1 once and B2, B3 once a
+    layer on the 4 local heads with the key bias, and the vocab-split
+    logits within 2^-5 normwise of the whole model's."""
+    for r in slice10_world(tmp_path):
+        assert r["bert_launches"] == {"fa_fwd": 2, "fa_bwd_dq": 2,
+                                      "fa_bwd_dkv": 2}
+        assert r["bert_gap"] <= 2 ** -5, r["bert_gap"]

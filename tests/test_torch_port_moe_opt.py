@@ -12,7 +12,13 @@
   expert tensor whose two largest dims reach 128, so optax factors it.
 - On the deferred pair's skip steps the bank's ``.grad`` is None and its
   parameters and state do not change; a learning-rate schedule raises.
+- The factored variant on an expert bank split over ``{"ep": 2}`` and
+  ``{"fsdp": 2, "ep": 2}`` (gloo worlds of 2 and 4, started side by side)
+  tracks optax on the whole bank within 1e-5: optax applies the factored
+  means and both block RMS rules to the whole tensor.
 """
+
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +27,7 @@ import optax
 import pytest
 import torch
 
+import torch_port_mp as mp
 from horovod_tpu.optimizer import moe_opt as jopt
 
 from horovod_tpu_torch.optimizer import moe_opt as topt
@@ -203,3 +210,121 @@ def test_is_expert_param_on_the_port_names():
     for name in ("blocks.0.moe.router.weight", "blocks.0.mlp.w1.weight",
                  "blocks.0.attn.wq.weight", "embedding"):
         assert not topt.is_expert_param(name)
+
+
+# -------------------------------------- Adafactor on a sharded expert bank
+
+#: The bank of the sharded Adafactor worlds, whole, and its logical names.
+#: Under fsdp the bank's D = 192 splits to 96, under the 128 of
+#: ``min_dim_size_to_factor``: a block would not be factored at all, where
+#: optax factors the whole bank over its two largest dims (192, 160). The
+#: second expert is drawn 4 times larger, so the RMS of one expert's block
+#: is not the bank's.
+BANK = {"moe.w1": ((2, 192, 160), ("experts", "embed", "mlp")),
+        "moe.w2": ((2, 8, 4), ("experts", "mlp", "embed")),
+        "dense": ((16, 8), (None, None))}
+SHARDED_MESHES = {2: [{"ep": 2}], 4: [{"fsdp": 2, "ep": 2}]}
+
+_ADAFACTOR_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optimizer import moe_opt
+    from horovod_tpu_torch.parallel import create_mesh, sharding
+
+    data_dir = sys.argv[1]
+    hvd.init(device="cpu")
+    rank, n = hvd.rank(), hvd.size()
+    bank = json.load(open(f"{data_dir}/bank.json"))
+    d = dict(np.load(f"{data_dir}/bank.npz"))
+    out = {}
+    for axes in json.load(open(f"{data_dir}/meshes{n}.json")):
+        mesh = create_mesh(axes)
+        name = "-".join(f"{a}{s}" for a, s in axes.items())
+        params, places = {}, {}
+        for k, (shape, names) in bank.items():
+            place = sharding.placement(mesh, names, shape)
+            p = torch.nn.Parameter(
+                place.block(torch.from_numpy(d[f"param-{k}"])).clone())
+            sharding.set_placement(p, place)
+            params[k], places[k] = p, place
+        opt = moe_opt.optimizer_for(
+            moe_opt.moe_adamw(1e-3, expert_variant="factored"),
+            params.items())
+        for step in range(int(d["steps"])):
+            for k, p in params.items():
+                p.grad = places[k].block(
+                    torch.from_numpy(d[f"grad{step}-{k}"])).clone()
+            opt.step()
+        for k, p in params.items():
+            out[f"{name}-{k}"] = p.detach().numpy().copy()
+            out[f"{name}-{k}-start"] = np.asarray(
+                [a.index * (s // a.size) if a is not None else 0
+                 for s, a in zip(places[k].shape, places[k].axes)])
+    np.savez(f"{data_dir}/rank{rank}_{n}.npz", **out)
+    hvd.shutdown()
+""")
+
+
+@pytest.fixture(scope="module")
+def sharded_adafactor(tmp_path_factory):
+    """Five Adafactor steps (``moe_adamw(expert_variant="factored")``) of
+    :data:`BANK` on each mesh of :data:`SHARDED_MESHES`, every rank
+    holding its block, in gloo worlds of 2 and 4 started side by side;
+    beside optax's on the whole tensors."""
+    import json
+
+    tmp = tmp_path_factory.mktemp("adafactor_worlds")
+    rng = np.random.RandomState(3)
+    d = {"steps": np.asarray(STEPS)}
+    for k, (shape, _) in BANK.items():
+        w = rng.randn(*shape).astype(np.float32)
+        if k.startswith("moe"):
+            w[1] *= 4.0
+        d[f"param-{k}"] = w
+        for s in range(STEPS):
+            d[f"grad{s}-{k}"] = (0.1 * rng.randn(*shape)).astype(np.float32)
+    np.savez(tmp / "bank.npz", **d)
+    (tmp / "bank.json").write_text(json.dumps(BANK))
+    for n, meshes in SHARDED_MESHES.items():
+        (tmp / f"meshes{n}.json").write_text(json.dumps(meshes))
+    wait = mp.start_worlds(tmp, _ADAFACTOR_WORKER, SHARDED_MESHES)
+    # optax on the whole tensors, while the worlds run
+    tx = jopt.moe_adamw(LR, expert_variant="factored")
+    params = {"dense": jnp.asarray(d["param-dense"]),
+              "moe": {"w1": jnp.asarray(d["param-moe.w1"]),
+                      "w2": jnp.asarray(d["param-moe.w2"])}}
+    state = tx.init(params)
+    for s in range(STEPS):
+        g = {"dense": jnp.asarray(d[f"grad{s}-dense"]),
+             "moe": {"w1": jnp.asarray(d[f"grad{s}-moe.w1"]),
+                     "w2": jnp.asarray(d[f"grad{s}-moe.w2"])}}
+        updates, state = tx.update(g, state, params)
+        params = optax.apply_updates(params, updates)
+    wait()
+    got = {n: [dict(np.load(tmp / f"rank{r}_{n}.npz")) for r in range(n)]
+           for n in SHARDED_MESHES}
+    return got, _flat(params)
+
+
+@pytest.mark.parametrize("n,axes", [(n, a) for n, ms in SHARDED_MESHES.items()
+                                    for a in ms],
+                         ids=["ep2", "fsdp2-ep2"])
+def test_factored_on_a_sharded_bank_tracks_optax_on_the_whole(
+        sharded_adafactor, n, axes):
+    """optax applies the factored moments' means and both block RMS rules
+    (``clip_by_block_rms``, ``scale_by_param_block_rms``) to each whole
+    tensor; every rank's block after 5 steps must be that block of optax's
+    result, within 1e-5 (absolute and relative), on ``{"ep": 2}`` and on
+    ``{"fsdp": 2, "ep": 2}``."""
+    got, want = sharded_adafactor
+    name = "-".join(f"{a}{s}" for a, s in axes.items())
+    for r, res in enumerate(got[n]):
+        for k, w in want.items():
+            block = res[f"{name}-{k}"]
+            idx = tuple(slice(int(a), int(a) + b) for a, b in
+                        zip(res[f"{name}-{k}-start"], block.shape))
+            np.testing.assert_allclose(block, w[idx], rtol=1e-5, atol=1e-5,
+                                       err_msg=f"rank {r} {k}")

@@ -18,7 +18,12 @@ each rank holding one stage (JAX stacks the four and splits them over
   the same mesh of ``jax.devices()[:4]`` (loss rtol 1e-4, parameters rtol
   2e-4 / atol 1e-5, JAX's tolerances), and a second step that lowers the
   loss;
-- the schedule ``ValueError`` s and the ``pair=`` refusal, in process.
+- ``pair=deferred_pair(every=2)`` with GPipe and 1F1B on ``{"pp": 4}``,
+  each stage ``tanh(tanh(x @ dense) @ mlp)`` with ``mlp`` deferred, four
+  steps against JAX's ``make_pipeline_train_step(pair=...)``; on the skip
+  steps ``mlp`` takes no gradient and stays bit-unchanged;
+- the schedule ``ValueError`` s, and ``pair=`` with an optimizer not built
+  from ``pair.apply``, in process.
 """
 
 import json
@@ -39,6 +44,8 @@ from horovod_tpu.train import (create_pipeline_train_state as
                                jcreate_pipeline_train_state)
 from horovod_tpu.train import (make_pipeline_train_step as
                                jmake_pipeline_train_step)
+
+import torch
 
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.parallel import create_mesh
@@ -116,6 +123,33 @@ _WORKER = textwrap.dedent("""
         out[f"step-{schedule}-{dp}"] = [loss.item(), loss2.item(),
                                         state.step, mesh.axis("pp").index,
                                         first.tolist()]
+    from horovod_tpu_torch.optimizer import deferred_pair, optimizer_for
+    for schedule in ("gpipe", "1f1b"):
+        mesh = create_mesh({"pp": 4})
+        i = mesh.axis("pp").index
+        stage = torch.nn.Module()
+        stage.dense = torch.nn.Parameter(d["pair_dense"][i].clone())
+        stage.mlp = torch.nn.Parameter(d["pair_mlp"][i].clone())
+        pair = deferred_pair(1e-2, every=2,
+                             is_expert=lambda n: n.startswith("mlp"))
+        opt = optimizer_for(pair.apply, stage.named_parameters())
+        state = create_pipeline_train_state(stage, opt)
+        step = make_pipeline_train_step(
+            lambda m, x: torch.tanh(torch.tanh(x @ m.dense) @ m.mlp), mse,
+            opt, mesh=mesh, schedule=schedule, pair=pair)
+        losses, frozen_kept, moved = [], True, True
+        for k in range(4):
+            before = stage.mlp.detach().clone()
+            state, loss = step(state, d["step_x"], d["step_t"])
+            losses.append(loss.item())
+            if (k + 1) % 2:  # a skip step
+                frozen_kept &= (stage.mlp.grad is None
+                                and torch.equal(stage.mlp, before))
+            else:
+                moved &= not torch.equal(stage.mlp, before)
+        out[f"pair-{schedule}"] = [losses, frozen_kept, moved, i,
+                                   stage.dense.detach().tolist(),
+                                   stage.mlp.detach().tolist()]
     with open(f"{data_dir}/rank{rank}.json", "w") as f:
         json.dump(out, f)
     hvd.shutdown()
@@ -147,6 +181,9 @@ def _inputs():
     d["train_W"] = rng.randn(N, 4, 4).astype(np.float32) * 0.3
     d["train_x"] = rng.randn(6, 2, 4).astype(np.float32)
     d["train_t"] = rng.randn(6, 2, 4).astype(np.float32)
+    rng = np.random.RandomState(8)
+    d["pair_dense"] = rng.randn(N, 3, 3).astype(np.float32) * 0.4
+    d["pair_mlp"] = rng.randn(N, 3, 3).astype(np.float32) * 0.4
     for n in (4, 2):  # tests/test_step_builder.py::_pipeline_parts
         rng = np.random.RandomState(7)
         d[f"step{n}_W"] = rng.randn(n, 3, 3).astype(np.float32) * 0.4
@@ -182,6 +219,30 @@ def _jax_step(d, schedule, dp):
     return float(loss), np.asarray(state.stage_params)
 
 
+def _jax_pair_steps(d, schedule):
+    """Four steps of JAX's ``make_pipeline_train_step(pair=deferred_pair(
+    every=2))`` on ``{"pp": 4}`` with stages ``tanh(tanh(x @ dense) @
+    mlp)``, ``mlp`` the deferred group: the losses and the stacked stage
+    parameters after them."""
+    from horovod_tpu.optimizer import deferred_pair as jdeferred_pair
+    mesh = jcreate_mesh({"pp": N}, devices=jax.devices()[:N])
+    pair = jdeferred_pair(1e-2, every=2,
+                          is_expert=lambda p: p.startswith("mlp"))
+    params = {"dense": jnp.asarray(d["pair_dense"]),
+              "mlp": jnp.asarray(d["pair_mlp"])}
+    state = jcreate_pipeline_train_state(params, pair.apply)
+    step = jmake_pipeline_train_step(
+        lambda p, x: jnp.tanh(jnp.tanh(x @ p["dense"]) @ p["mlp"]),
+        lambda y, t: jnp.mean((y - t) ** 2), pair.apply, mesh=mesh,
+        schedule=schedule, donate=False, pair=pair)
+    losses = []
+    for _ in range(4):
+        state, loss = step(state, jnp.asarray(d["step_x"]),
+                           jnp.asarray(d["step_t"]))
+        losses.append(float(loss))
+    return losses, {k: np.asarray(v) for k, v in state.stage_params.items()}
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline_world")
@@ -196,6 +257,8 @@ def world(tmp_path_factory):
         env=dict(env, HOROVOD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(N)]
     want = {f"{s}-{dp}": _jax_step(d, s, dp) for s, dp in STEP_CASES}
+    want.update({f"pair-{s}": _jax_pair_steps(d, j)
+                 for s, j in (("gpipe", "gpipe"), ("1f1b", "interleaved"))})
     outs = [p.communicate(timeout=300) for p in procs]
     for p, (out, _) in zip(procs, outs):
         assert p.returncode == 0, out
@@ -251,6 +314,25 @@ def test_pipeline_step_matches_jax(world, schedule, dp):
         assert loss2 < loss
 
 
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pair_cadence_matches_jax(world, schedule):
+    """``pair=deferred_pair(every=2)`` naming each stage's ``mlp``: four
+    steps against JAX's apply and skip programs (loss rtol 1e-4,
+    parameters rtol 2e-4 / atol 1e-5, the step tolerances above); on the
+    skip steps ``mlp`` takes no gradient and stays bit-unchanged, on the
+    apply steps it moves."""
+    _, ranks, want = world
+    jlosses, jparams = want[f"pair-{schedule}"]
+    for r in ranks:
+        losses, frozen_kept, moved, stage, dense, mlp = r[f"pair-{schedule}"]
+        assert frozen_kept and moved
+        np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+        np.testing.assert_allclose(dense, jparams["dense"][stage],
+                                   rtol=2e-4, atol=1e-5)
+        np.testing.assert_allclose(mlp, jparams["mlp"][stage], rtol=2e-4,
+                                   atol=1e-5)
+
+
 def test_pipeline_schedule_validation():
     thvd.init(device="cpu")
     try:
@@ -262,9 +344,16 @@ def test_pipeline_schedule_validation():
         with pytest.raises(ValueError, match="unknown schedule"):
             make_pipeline_train_step(lambda W, x: x, lambda y, t: y.mean(),
                                      None, mesh=mesh, schedule="zigzag")
-        with pytest.raises(NotImplementedError, match="pair= cadence"):
-            make_pipeline_train_step(lambda W, x: x, lambda y, t: y.mean(),
-                                     None, mesh=mesh, schedule="gpipe",
-                                     pair=object())
+        # pair= takes an optimizer built from pair.apply
+        from horovod_tpu_torch.optimizer import deferred_pair
+        from horovod_tpu_torch.train import create_pipeline_train_state
+        W = torch.nn.Parameter(torch.ones(2, 2))
+        opt = torch.optim.SGD([W], lr=0.1)
+        step = make_pipeline_train_step(
+            lambda W, x: x @ W, lambda y, t: y.mean(), opt, mesh=mesh,
+            schedule="gpipe", pair=deferred_pair(1e-3, every=2))
+        with pytest.raises(ValueError, match="not built from pair.apply"):
+            step(create_pipeline_train_state(W, opt), torch.ones(2, 1, 2),
+                 torch.ones(2, 1, 2))
     finally:
         thvd.shutdown()

@@ -219,12 +219,15 @@ def test_mesh_errors():
 
 
 def test_later_axes_raise_not_implemented(monkeypatch):
-    """``tp`` and ``fsdp`` build now (the model-parallel slice); what waits
-    for a later slice still raises: Mixtral on a tp or fsdp mesh names
-    slice 10. A world of one shows it: the size is patched and
+    """``tp`` and ``fsdp`` build (the model-parallel slice), and since
+    slice 10 Mixtral builds on them too, holding its ``[E/ep, D/fsdp,
+    M/tp]`` block of each expert bank; what the port still refuses on an
+    axis is a deliberate disagreement that names ROADMAP.md, section C:
+    BERT on sp. A world of one shows it: the size is patched and
     ``new_group`` records the rows instead of making them."""
     import torch.distributed as dist
     from horovod_tpu_torch.core import context_api
+    from horovod_tpu_torch.models.bert import Bert, bert_tiny
     from horovod_tpu_torch.models.mixtral import Mixtral, mixtral_tiny
     thvd.init(device="cpu")
     try:
@@ -232,10 +235,14 @@ def test_later_axes_raise_not_implemented(monkeypatch):
         monkeypatch.setattr(dist, "new_group", lambda ranks: tuple(ranks))
         assert create_mesh({"dp": 2, "tp": 2}).axis("tp").ranks == (0, 1)
         assert create_mesh({"fsdp": 4}).axis("fsdp").ranks == (0, 1, 2, 3)
-        for axes in ({"dp": 2, "tp": 2}, {"fsdp": 4}):
-            with pytest.raises(NotImplementedError, match="slice 10"):
-                Mixtral(mixtral_tiny(), device="cpu",
-                        mesh=create_mesh(axes))
+        for axes, bank in (({"dp": 2, "tp": 2}, (8, 64, 64)),
+                           ({"fsdp": 4}, (8, 16, 128))):
+            model = Mixtral(mixtral_tiny(), device="cpu",
+                            mesh=create_mesh(axes))
+            assert tuple(model.blocks[0].moe.w1.shape) == bank
+        with pytest.raises(ValueError, match="ROADMAP.md, section C"):
+            Bert(bert_tiny(), device="cpu",
+                 mesh=create_mesh({"dp": 2, "sp": 2}))
     finally:
         monkeypatch.undo()
         thvd.shutdown()

@@ -2,6 +2,10 @@
 (``test_torch_port_tp.py``, ``test_torch_port_fsdp.py``): the JAX
 package's GSPMD step on ``jax.devices()[:4]`` beside one 4-process gloo
 world of the port that runs every case of a module in turn.
+:func:`start_worlds` starts gloo worlds of any sizes side by side for the
+other model-parallel files (``test_torch_port_mixtral_mp.py``,
+``test_torch_port_bert_mp.py``, the sharded Adafactor of
+``test_torch_port_moe_opt.py``).
 
 Each case is ``llama_tiny`` (f32) with its config overrides, trained three
 AdamW steps (lr 1e-3, weight decay 1e-4, as ``optax.adamw(1e-3)``) on a 4
@@ -170,22 +174,38 @@ def jax_train(axes, cfg_overrides, toks, tmp, name):
     return losses, {k: v.numpy() for k, v in final.items()}
 
 
+def start_worlds(tmp, worker, sizes, extra=(), env=None):
+    """Start a gloo world of each size in ``sizes`` side by side, every
+    rank running the source ``worker`` with ``tmp`` and ``extra`` as its
+    arguments. Returns a function that waits for every rank and asserts
+    that each exited 0."""
+    script = tmp / "worker.py"
+    script.write_text(worker)
+    procs = []
+    for n in sizes:
+        base = dict(os.environ, PYTHONPATH=REPO,
+                    HOROVOD_NUM_PROCESSES=str(n),
+                    HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{_free_port()}",
+                    **(env or {}))
+        procs += [subprocess.Popen(
+            [sys.executable, str(script), str(tmp), *extra],
+            env=dict(base, HOROVOD_PROCESS_ID=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+
+    def wait():
+        outs = [p.communicate(timeout=300) for p in procs]
+        for p, (out, _) in zip(procs, outs):
+            assert p.returncode == 0, out
+
+    return wait
+
+
 def run_world(tmp, cases, extra=()):
     """Run ``cases`` in one 4-process gloo world; each rank's results."""
     with open(tmp / "cases.json", "w") as f:
         json.dump(cases, f)
-    script = tmp / "worker.py"
-    script.write_text(_WORKER)
-    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_NUM_PROCESSES=str(N),
-               HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{_free_port()}",
-               HOROVOD_LOCAL_SIZE="2")
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(tmp), *extra],
-        env=dict(env, HOROVOD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(N)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    for p, (out, _) in zip(procs, outs):
-        assert p.returncode == 0, out
+    start_worlds(tmp, _WORKER, [N], extra, {"HOROVOD_LOCAL_SIZE": "2"})()
     ranks = []
     for r in range(N):
         with open(tmp / f"rank{r}.json") as f:
