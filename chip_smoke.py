@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
 and of its Adasum, hierarchical, collective, context-parallel,
-expert-parallel, model-parallel (Llama, Mixtral, BERT) and pipeline paths
-across up to four cards where the machine has them.
+expert-parallel, model-parallel (Llama, Mixtral, BERT), pipeline and DLRM
+paths across up to four cards where the machine has them.
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the script exits nonzero.
-They run in this order: 1 and 2; the one-card phases (5-12, 14, 16) on
-card 0; then the multi-card phases (3, 4, 13, 15, 17-20), each printing its
-seconds, and the whole script's. On four cards or more, the 2-rank worlds
+They run in this order: 1 and 2; the one-card phases (5-12, 14, 16, 21) on
+card 0; then the multi-card phases (3, 4, 13, 15, 17-20, 22), each printing
+its seconds, and the whole script's. On four cards or more, the 2-rank worlds
 of phases 18 and 19 run on cards 2 and 3 beside the one-card phases
 (``LANE_PHASES``), and phases 13, 15 and 17 start their 4-rank world alone:
 it splits every axis their 2-rank world splits (``FOUR_ALONE``).
@@ -46,8 +46,11 @@ it splits every axis their 2-rank world splits (``FOUR_ALONE``).
    first step's reduced gradient per element within 2^-21 sum_i |g_i| / n
    of a flat ``dist.all_reduce`` of the same local gradients (each side
    sums n <= 4 terms with n - 1 roundings of 2^-24 of the summed
-   magnitudes; dividing by 2 or 4 is exact). Then 12 steps in turns, flat
-   and hierarchical, for the step time and tokens/s/GPU of each.
+   magnitudes; dividing by 2 or 4 is exact). ``DistributedOptimizer``'s
+   all-gather of the kinds of gradient (it learns which are sparse) on the
+   first of those steps only, and that all-gather timed alone 20 times.
+   Then 12 steps in turns, flat and hierarchical, for the step time and
+   tokens/s/GPU of each.
    (b) ``hierarchical_adasum`` of each rank's flat f32 gradient
    (1,486,901,248 elements): log2(cross) launches of B4 and of B5 a rank,
    and rank 0's result within 1e-5 (|ref| + RMS(ref)) of the sum within
@@ -275,6 +278,38 @@ it splits every axis their 2-rank world splits (``FOUR_ALONE``).
    apart), then BERT-Large at its 24 layers for 4 steps, the last
    profiled, with the collectives of ``bert_mp_expected`` and B1-B3 once a
    layer a step on the ``16 / tp`` local heads. Prints the same rates.
+21. dlrm — ``dlrm_criteo()`` on one card (26 tables of 100,000 x 64 f32,
+   13 dense features, bottom MLP 512-256-64, top 512-256-1; nothing cut),
+   2048 synthetic examples a step drawn as ``benchmarks/dlrm.py:45-47``,
+   Adagrad with optax's rule (lr 1e-2, eps 1e-7, accumulator 0.1). (a) One
+   step of ``build_sparse_training``'s sparse step against one step of the
+   plain dense path (``looked=None``, a dense ``[T R, D]`` table gradient,
+   dense Adagrad over the whole table) from the same weights and batch:
+   the losses equal, the touched rows and the MLPs per element within
+   2^-20 (|ref| + RMS(ref)), every untouched row bit-unchanged. Then 30
+   dense and 30 sparse steps in turns, after a warm-up, for their step
+   times: median, least and most (the JAX package claims about 2x for the
+   sparse step; a number to read, not a gate) and examples/s/GPU. (b) Five
+   more sparse steps on that batch: finite losses, the last below the
+   first; peak memory and the fifth step's device time by group. B1-B5
+   launch 0 times.
+22. dlrm-mp — DLRM over ep and dp; it needs two ranks: on one card it
+   prints that and runs nothing. On 4 cards one NCCL world of 4 runs
+   ``{"ep": 4}`` (the 26 tables split 7, 7, 6, 6) and ``{"dp": 2, "ep":
+   2}`` through the sparse step's exchange, and ``{"dp": 4}`` through
+   Horovod's recipe (``DLRM(sparse_grad=True)``, ``DistributedOptimizer``'s
+   ``sparse_allreduce``); on 2 cards ``{"ep": 2}`` and ``{"dp": 2}``.
+   2048 examples a data shard, 34 steps: 3 warm-up, 30 timed, the last
+   profiled on rank 0. Rank 0 first runs the whole model on its card over
+   the global batch for one step, and broadcasts the result after the
+   mesh's first step: the first
+   loss within 1e-5 relative, and after one step each rank's table block
+   and MLPs per element within 1e-5 (|ref| + RMS(ref)) of the whole
+   model's. Requires blocks bit-identical on their holders and on each
+   step the collectives of ``dlrm_mp_expected`` (``DistributedOptimizer``'s
+   kinds-of-gradient all-gather on the first only). Prints the step's
+   median, least and most ms, examples/s/GPU, the worst rank's peak
+   memory and rank 0's device time by group, NCCL apart.
 
 After phase 5, B1, B2 and B3 are also held and timed at the tp-local head
 counts of the main shape (16 heads at tp 2, 8 at tp 4: ``tp-kernels``).
@@ -292,8 +327,9 @@ steps), ``mixtral-ep`` (phase 15, rank 0's steps), ``model-parallel``
 (phase 17, rank 0's parity steps at 2 layers), ``pipeline`` (phase 18,
 rank 0's steps before ``pair=``), ``mixtral-mp`` (phase 19, rank 0's
 second step on ``{"fsdp": 2, "ep": 2}`` at 6 layers; on 2 cards its parity
-steps) and ``bert-mp`` (phase 20, rank 0's second step of its first
-24-layer run).
+steps), ``bert-mp`` (phase 20, rank 0's second step of its first
+24-layer run), ``dlrm`` (phase 21, its sparse steps) and ``dlrm-mp`` (phase
+22, rank 0's steps on its first mesh).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -1117,9 +1153,11 @@ def collectives_worker(out_dir):
 
     opt.synchronize = keep_first_step
     losses, times, fa_launches, stage_launches = [], [], [], []
+    agreements = []
     for _ in range(3):
         fa.reset_launch_counts()
         before = dict(stages)
+        hvd.DistributedOptimizer.agreements = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, loss = step(state, tokens, tokens)
@@ -1128,9 +1166,21 @@ def collectives_worker(out_dir):
         fa_launches.append({k: f.launches for k, f in fa.KERNELS.items()})
         stage_launches.append([stages[k] - before[k]
                                for k in ops.HIER_STAGES])
+        agreements.append(hvd.DistributedOptimizer.agreements)
     opt.synchronize = synchronize
+    # What the first step pays to learn that every gradient is dense: the
+    # kinds' all-gather and its wait for the card, alone, 20 times.
+    kinds, agreement_s = dict(opt._kind), []
+    for _ in range(20):
+        opt._kind.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt._agree_on_sparse()
+        agreement_s.append(time.perf_counter() - t)
+    opt._kind.update(kinds)
     res.update(losses=losses, times=times, fa_launches=fa_launches,
-               stage_launches=stage_launches)
+               stage_launches=stage_launches, agreements=agreements,
+               agreement_s=agreement_s, n_params=len(params))
     turns = {"flat": [], "hierarchical": []}
     for mode in ("flat", "hierarchical", "hierarchical", "flat") * 3:
         with ops.hierarchical_override(mode == "hierarchical"):
@@ -1385,6 +1435,10 @@ def collectives_phase(torch, card):
             if min(launched.values()) < res["n_layers"]:
                 raise AssertionError(f"flash kernels per step {launched}, "
                                      "expected once a layer at least")
+        if res["agreements"] != [1, 0, 0]:
+            raise AssertionError(f"rank {res['rank']}: kinds-of-gradient "
+                                 f"all-gathers per step "
+                                 f"{res['agreements']}, expected [1, 0, 0]")
         if res["stage_launches"] != [stages] * 3:
             raise AssertionError(f"rank {res['rank']}: stages per step "
                                  f"{res['stage_launches']}, expected "
@@ -1422,6 +1476,11 @@ def collectives_phase(torch, card):
                        f"err/tol {r0['grad_err_over_tol']:.3f} (tolerance "
                        f"2^-21 sum_i |g_i| / n per element); peak "
                        f"{r0['peak_gb']:.1f} GB; on {card}")
+    log("collectives", f"DistributedOptimizer's kinds-of-gradient "
+                       f"all-gathers per checked step {r0['agreements']} "
+                       f"on every rank; alone, over {r0['n_params']} "
+                       f"parameters: {_spread(r0['agreement_s'])} on the "
+                       f"host clock, to the card's answer; on {card}")
     log("collectives", f"step in turns, 6 each: hierarchical "
                        f"{hier_s * 1e3:.1f} ms, "
                        f"{2 * 2048 / hier_s:.0f} tokens/s/GPU; flat "
@@ -3700,6 +3759,422 @@ def bert_mp_phase(torch, card):
     return total
 
 
+# ------------------------------------------------------------------- DLRM
+
+#: DLRM at ``dlrm_criteo()`` width: 2048 examples a step on one card and a
+#: data shard on the meshes (``benchmarks/dlrm.py``'s per-chip batch);
+#: Adagrad with optax's rule, lr 1e-2, eps 1e-7, initial accumulator 0.1.
+DLRM_B = 2048
+#: Steps timed on the host clock, after a warm-up, for a step time.
+DLRM_TIMED = 30
+#: Phase 22's steps before the timed ones; the first is the parity step.
+DLRM_MP_WARM = 3
+DLRM_LR, DLRM_EPS, DLRM_ACC0 = 1e-2, 1e-7, 0.1
+#: Phase 21's sparse step against the dense path, per element, r of
+#: ``|ref| + RMS(ref)``: the two sum a row's duplicate gradients in
+#: different orders (a sorted segment sum against the embedding's
+#: backward), which moves a gradient by about 1e-7 of itself and a row,
+#: through Adagrad's first step (about 0.03 g), by far less than one f32
+#: ulp of the row: expect 0, allow 2^-20.
+DLRM_SPARSE_R = 2 ** -20
+#: Phase 22 against the whole model over the global batch: the loss within
+#: 1e-5 relative (the mean of the shards' means against one mean of 8,192
+#: terms, each about 1e-7 apart), and each table block and MLP after one
+#: step per element within 1e-5 (|ref| + RMS(ref)): the gradients are
+#: summed in another order (shards, then NCCL's sum), about 1e-6 of their
+#: terms' magnitudes, and Adagrad's first step scales them by about
+#: lr / sqrt(0.1) = 0.03.
+DLRM_LOSS_RTOL = 1e-5
+DLRM_MP_R = 1e-5
+#: The meshes of phase 22 by world size. ``{"dp": n}`` takes Horovod's
+#: recipe (``DistributedOptimizer``'s sparse all-reduce of the replicated
+#: table), the others the sparse step's exchange over ep.
+DLRM_MESHES = {2: [{"ep": 2}, {"dp": 2}],
+               4: [{"ep": 4}, {"dp": 2, "ep": 2}, {"dp": 4}]}
+#: The device-time groups of a DLRM step. NCCL first: its kernels are
+#: named after gathers too.
+DLRM_GROUPS = (("nccl", dict(GROUPS)["nccl"]),
+               ("sort (duplicate collapse)", ("sort", "radix")),
+               ("row gathers, scatters, index_put", ("index", "gather",
+                                                     "scatter",
+                                                     "embedding")),
+               ("matmul", dict(GROUPS)["matmul"]),
+               ("reductions", ("reduce_kernel",)),
+               ("elementwise", ("elementwise",)))
+
+
+def dlrm_batch(torch, cfg, rows, seed=0):
+    """``rows`` synthetic examples on the card, drawn as
+    ``benchmarks/dlrm.py:45-47`` draws them: dense features normal, one id
+    a table uniform over its rows, labels 1 with probability 0.3."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    dense = rng.randn(rows, cfg.dense_features).astype(np.float32)
+    sparse = rng.randint(0, cfg.rows_per_table, (rows, cfg.num_tables))
+    labels = (rng.rand(rows) < 0.3).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (dense, sparse, labels))
+
+
+def dlrm_steps(torch, fn, n_steps, profile):
+    """``n_steps`` calls of ``fn`` (a step returning its loss), each timed
+    on the host clock to a device sync, the last under ``torch.profiler``
+    when ``profile``. Returns the losses, the seconds and the profile."""
+    losses, times, prof = [], [], None
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        last = profile and i == n_steps - 1
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+              if last else contextlib.nullcontext()) as p:
+            t = time.perf_counter()
+            losses.append(fn().item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if last:
+            prof = p
+    return losses, times, prof
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _spread(xs):
+    """``xs`` seconds as their median, least and most, in ms."""
+    return (f"median {_median(xs) * 1e3:.3f} ms (min {min(xs) * 1e3:.3f}, "
+            f"max {max(xs) * 1e3:.3f}, {len(xs)} steps)")
+
+
+def dlrm_phase(torch, card):
+    """The ``dlrm`` phase (module doc). Returns the launches of B1-B5 in
+    its sparse steps (none of them runs on this path)."""
+    from horovod_tpu_torch.models import dlrm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.optimizer import Adagrad
+    cfg = dlrm.dlrm_criteo()
+    d, s, y = dlrm_batch(torch, cfg, DLRM_B)
+    # (a) one sparse step against one step of the plain dense path
+    model = dlrm.DLRM(cfg, seed=0)
+    step, tables, accum = dlrm.build_sparse_training(
+        model, lr=DLRM_LR, eps=DLRM_EPS, acc0=DLRM_ACC0)
+    plain = dlrm.DLRM(cfg, seed=0)
+    plain_opt = Adagrad(plain.parameters(), lr=DLRM_LR,
+                        initial_accumulator_value=DLRM_ACC0, eps=DLRM_EPS)
+
+    def plain_step():
+        plain_opt.zero_grad(set_to_none=True)
+        loss = dlrm.bce_loss(plain(d, s), y)
+        loss.backward()  # a dense [T R, D] table gradient
+        plain_opt.step()
+        return loss.detach()
+
+    before = tables.detach().clone()
+    sparse_loss = step(tables, accum, d, s, y).item()
+    plain_loss = plain_step().item()
+    if sparse_loss != plain_loss:
+        raise AssertionError(f"dlrm: the sparse step's loss {sparse_loss!r} "
+                             f"is not the dense path's {plain_loss!r}")
+    touched = torch.zeros(tables.shape[0], dtype=torch.bool, device="cuda")
+    touched[(s + torch.arange(cfg.num_tables, device="cuda")
+             * cfg.rows_per_table).reshape(-1)] = True
+    if not torch.equal(tables[~touched], before[~touched]) or \
+            not torch.equal(plain.embedding_tables[~touched],
+                            before[~touched]):
+        raise AssertionError("dlrm: a row no id named moved")
+    gaps = {"touched rows": close_per_element(
+        torch, tables[touched].reshape(-1),
+        plain.embedding_tables.detach()[touched].reshape(-1),
+        DLRM_SPARSE_R)}
+    for (k, p), q in zip(model.named_parameters(), plain.parameters()):
+        if k != "embedding_tables":
+            gaps[k] = close_per_element(torch, p.detach().reshape(-1),
+                                        q.detach().reshape(-1),
+                                        DLRM_SPARSE_R)
+    worst = max(gaps, key=lambda k: gaps[k][1])
+    if gaps[worst][1] > 1.0:
+        raise AssertionError(f"dlrm: {worst} off the dense path's by "
+                             f"{gaps[worst]}")
+    del before
+    log("dlrm", f"dlrm_criteo() (26 x 100,000 x 64 f32 tables, 13 dense "
+                f"features, MLPs 512-256-64 and 512-256-1), {DLRM_B} "
+                f"synthetic examples: one sparse step against one step of "
+                f"the dense path (dense table gradient, dense Adagrad over "
+                f"the whole table) from the same weights: losses equal "
+                f"({sparse_loss:.7f}); {int(touched.sum())} touched rows "
+                f"and the MLPs per element within 2^-20 (|ref| + RMS), "
+                f"worst {worst}: max err {gaps[worst][0]:.2e}, err/tol "
+                f"{gaps[worst][1]:.3f}; the other "
+                f"{int((~touched).sum()):,} rows bit-unchanged; on {card}")
+    # the step times: after two warm-up pairs, DLRM_TIMED dense and sparse
+    # steps in turns, so that both see the same drift of the host's clock
+    sparse_step = lambda: step(tables, accum, d, s, y)  # noqa: E731
+    dlrm_steps(torch, plain_step, 2, False)
+    dlrm_steps(torch, sparse_step, 2, False)
+    plain_times, times = [], []
+    for _ in range(DLRM_TIMED):
+        plain_times += dlrm_steps(torch, plain_step, 1, False)[1]
+        times += dlrm_steps(torch, sparse_step, 1, False)[1]
+    sparse_s, plain_s = _median(times), _median(plain_times)
+    log("dlrm", f"{DLRM_TIMED} steps each, in turns after 2 warm-up "
+                f"pairs: sparse {_spread(times)}, {DLRM_B / sparse_s:.0f} "
+                f"examples/s/GPU; dense {_spread(plain_times)}, "
+                f"{DLRM_B / plain_s:.0f} examples/s/GPU; dense over sparse "
+                f"{plain_s / sparse_s:.2f}x (medians); on {card}")
+    # (b) five sparse steps on the batch, the last profiled
+    del plain, plain_opt, plain_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fused.reset_launch_counts()
+    losses, five, prof = dlrm_steps(torch, sparse_step, 5, True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: f.launches for k, f in fa.KERNELS.items()}
+    launches.update({k: f.launches for k, f in fused.KERNELS.items()})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dlrm: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dlrm: loss did not fall: {losses}")
+    log("dlrm", f"five more sparse steps on the batch: losses {losses} "
+                f"(profiled step {five[-1] * 1e3:.2f} ms); peak {peak:.2f} "
+                f"GB with the dense path freed; B1-B5 launched {launches}; "
+                f"on {card}")
+    log("dlrm", f"sparse step 5 under torch.profiler: "
+                f"{device_breakdown(prof, five[-1], DLRM_GROUPS)}")
+    del model, step, sparse_step, tables, accum, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dlrm_mp_expected(axes, buckets, step):
+    """The collectives step ``step`` (from 0) of phase 22 hands to
+    ``torch.distributed`` per rank: over ep three all-to-alls (ids, rows,
+    and in backward the row gradients); over dp the sparse step's two
+    all-gathers of a block's ids and row gradients, or on ``{"dp": n}``
+    Horovod's ``sparse_allreduce``, three all-gathers (entry counts,
+    indices, values); an all-reduce for each of the MLPs' fusion buckets
+    and one for the loss; and on the first step ``DistributedOptimizer``'s
+    all-gather of the kinds of gradient (none after: every parameter has
+    had one)."""
+    ep, dp = axes.get("ep", 1), axes.get("dp", 1)
+    horovod = ep == 1
+    return {"all_to_all": 3 * (ep > 1),
+            "all_gather": 2 * (dp > 1) * (not horovod),
+            "sparse_all_gather": 3 * horovod,
+            "all_reduce": buckets + 1, "agreement": int(step == 0)}
+
+
+def dlrm_mp_worker(out_dir):
+    """One rank of the ``dlrm-mp`` phase; writes ``rank<r>.json``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.collectives import ops
+    from horovod_tpu_torch.core.config import Config
+    from horovod_tpu_torch.models import dlrm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.optimizer import Adagrad
+    from horovod_tpu_torch.parallel import create_mesh, embedding, sharding
+    from horovod_tpu_torch.train import create_train_state, make_train_step
+    from horovod_tpu_torch.train.gspmd import _data_shards as data_shards
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cfg = dlrm.dlrm_criteo()
+    R = cfg.rows_per_table
+    runs = []
+    for axes in DLRM_MESHES[n]:
+        t0 = time.perf_counter()
+        mesh = create_mesh(axes)
+        shards, index = data_shards(mesh)
+        batch = dlrm_batch(torch, cfg, DLRM_B * shards)
+        model = dlrm.DLRM(cfg, seed=0, mesh=mesh, sparse_grad=axes.get(
+            "ep", 1) == 1)
+        ex = model.exchange
+        # rank 0 steps the whole model once over the global batch; after
+        # the first step it hands every rank the result
+        ref = {k: torch.empty_like(p) for k, p in model.named_parameters()}
+        ref["embedding_tables"] = torch.empty(cfg.num_tables * R,
+                                              cfg.embed_dim, device="cuda")
+        ref_loss = torch.zeros((), device="cuda")
+        if rank == 0:
+            whole = dlrm.DLRM(cfg, seed=0, mesh=None)
+            wstep, wtables, waccum = dlrm.build_sparse_training(
+                whole, lr=DLRM_LR, eps=DLRM_EPS, acc0=DLRM_ACC0)
+            ref_loss.copy_(wstep(wtables, waccum, *batch))
+            for k, p in whole.named_parameters():
+                ref[k].copy_(p.detach())
+            del whole, wstep, wtables, waccum
+            gc.collect()
+            torch.cuda.empty_cache()
+        d, s, y = (t[index * DLRM_B:(index + 1) * DLRM_B] for t in batch)
+        if model.sparse_grad:  # Horovod's recipe on {"dp": n}
+            opt = hvd.DistributedOptimizer(
+                Adagrad(model.parameters(), lr=DLRM_LR,
+                        initial_accumulator_value=DLRM_ACC0, eps=DLRM_EPS),
+                named_parameters=model.named_parameters())
+            state = create_train_state(model, opt)
+            tstep = make_train_step(model, opt, dlrm.bce_loss)
+            run = lambda: tstep(state, (d, s), y)[1]  # noqa: E731
+        else:
+            sstep, tables, accum = dlrm.build_sparse_training(
+                model, lr=DLRM_LR, eps=DLRM_EPS, acc0=DLRM_ACC0)
+            run = lambda: sstep(tables, accum, d, s, y)  # noqa: E731
+        setup_s = time.perf_counter() - t0
+        fa.reset_launch_counts()
+        fused.reset_launch_counts()
+        losses, times, counts, gaps = [], [], [], None
+        prof = None
+        steps = DLRM_MP_WARM + DLRM_TIMED + 1
+        for i in range(steps):
+            embedding.reset_counts()
+            ops.allreduce_async_.launches = 0
+            ops.sparse_allreduce.launches = 0
+            hvd.DistributedOptimizer.agreements = 0
+            loss, t, p = dlrm_steps(torch, run, 1,
+                                    rank == 0 and i == steps - 1)
+            losses += loss
+            times += t
+            prof = p or prof
+            counts.append(dict(embedding.counts,
+                               all_reduce=ops.allreduce_async_.launches,
+                               sparse_all_gather=(
+                                   ops.sparse_allreduce.launches),
+                               agreement=hvd.DistributedOptimizer.agreements))
+            if i == 0:
+                for buf in [ref_loss, *ref.values()]:
+                    hvd.broadcast_(buf, 0)
+                ref_loss = ref_loss.item()
+                ref["embedding_tables"] = ref["embedding_tables"][
+                    ex.first * R:(ex.first + ex.local) * R]
+                gaps = {k: close_per_element(
+                    torch, p.detach().reshape(-1), ref[k].reshape(-1),
+                    DLRM_MP_R) for k, p in model.named_parameters()}
+                ref = None  # the peak is the steps' after this one
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+        buckets = expected_buckets(torch.nn.ModuleList(
+            [model.bottom, model.top]), Config.from_env()
+            .fusion_threshold_bytes)
+        differ = 0
+        for k, p in model.named_parameters():
+            rs = (sharding.replica_set(mesh, ("ep",))
+                  if k == "embedding_tables" else None)
+            buf = p.detach().clone()
+            hvd.broadcast_(buf, rs.ranks[0] if rs is not None else 0,
+                           process_set=rs)
+            differ += int(not torch.equal(buf, p.detach()))
+        runs.append({
+            "axes": axes, "losses": losses, "times": times,
+            "ref_loss": ref_loss, "gaps": gaps, "counts": counts,
+            "want_counts": [dlrm_mp_expected(axes, buckets, i)
+                            for i in range(steps)],
+            "differ": differ, "shards": shards,
+            "launches": {k: f.launches for k, f in [*fa.KERNELS.items(),
+                                                    *fused.KERNELS.items()]},
+            "tables": [ex.first, ex.local],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": (device_breakdown(prof, times[-1], DLRM_GROUPS)
+                        if prof is not None else None),
+            "setup_s": setup_s, "seconds": time.perf_counter() - t0})
+        del model, run, batch, d, s, y, ref, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "size": n, "runs": runs}, f)
+    hvd.shutdown()
+    return 0
+
+
+def dlrm_mp_phase(torch, card):
+    """The ``dlrm-mp`` phase (module doc). Returns rank 0's launches of
+    B1-B5 over the steps of its first mesh (none runs on this path), or
+    zeros on one card."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    total = dict.fromkeys([*fa.KERNELS, *fused.KERNELS], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("dlrm-mp", "one card: the tables split over ep, or replicate "
+                       "over dp, across 2 or more ranks; on one card the "
+                       "phase runs nothing")
+        return total
+    n = 4 if cards >= 4 else 2
+    t0 = time.perf_counter()
+    env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+           if n < cards else None)
+    ranks = run_world("dlrm-mp", n, env)
+    for j, run in enumerate(ranks[0]["runs"]):
+        axes = run["axes"]
+        route = ("DistributedOptimizer's sparse all-reduce" if "ep" not in
+                 axes else "the sparse step's exchange over ep")
+        what = f"{n} ranks, {axes}, dlrm_criteo(), {route}"
+        rel = abs(run["losses"][0] - run["ref_loss"]) / run["ref_loss"]
+        if not rel <= DLRM_LOSS_RTOL:
+            raise AssertionError(f"{what}: first loss {run['losses'][0]} vs "
+                                 f"the whole model's {run['ref_loss']}")
+        for res in ranks:
+            mine = res["runs"][j]
+            worst = max(mine["gaps"], key=lambda k: mine["gaps"][k][1])
+            if mine["gaps"][worst][1] > 1.0:
+                raise AssertionError(
+                    f"{what}: rank {res['rank']}'s {worst} after one step "
+                    f"off the whole model's: {mine['gaps'][worst]}")
+            if mine["differ"]:
+                raise AssertionError(f"{what}: rank {res['rank']} holds "
+                                     f"{mine['differ']} blocks that differ "
+                                     f"from their first holder's")
+            if mine["counts"] != mine["want_counts"]:
+                bad = next(i for i, (a, b) in enumerate(zip(
+                    mine["counts"], mine["want_counts"])) if a != b)
+                raise AssertionError(f"{what}: rank {res['rank']}'s "
+                                     f"collectives on step {bad} "
+                                     f"{mine['counts'][bad]}, expected "
+                                     f"{mine['want_counts'][bad]}")
+            if not all(math.isfinite(x) for x in mine["losses"]):
+                raise AssertionError(f"{what}: non-finite loss "
+                                     f"{mine['losses']}")
+        worst = max((res["runs"][j]["gaps"][k][1], res["rank"], k)
+                    for res in ranks for k in res["runs"][j]["gaps"])
+        timed = run["times"][DLRM_MP_WARM:-1]
+        step_s = _median(timed)
+        peak = max(res["runs"][j]["peak_gb"] for res in ranks)
+        log("dlrm-mp", f"{what}, {DLRM_B} examples a data shard, Adagrad: "
+                       f"first loss {run['losses'][0]:.7f} vs the whole "
+                       f"model's over the global batch of "
+                       f"{DLRM_B * run['shards']} {run['ref_loss']:.7f} (rel "
+                       f"{rel:.2e}, gate {DLRM_LOSS_RTOL}); after one step "
+                       f"every table block and MLP per element within 1e-5 "
+                       f"(|ref| + RMS), worst err/tol {worst[0]:.3f} (rank "
+                       f"{worst[1]}, {worst[2]}); tables a rank "
+                       f"{[r['runs'][j]['tables'] for r in ranks]} (first, "
+                       f"count); blocks bit-identical on their holders; "
+                       f"collectives on step 1 {run['counts'][0]}, on each "
+                       f"later step {run['counts'][1]}; losses "
+                       f"{[round(x, 7) for x in run['losses'][:3]]} ... "
+                       f"{run['losses'][-1]:.7f} ({len(run['losses'])} "
+                       f"steps); step {_spread(timed)} after "
+                       f"{DLRM_MP_WARM} warm-up steps, "
+                       f"{DLRM_B / step_s:.0f} examples/s/GPU (first "
+                       f"{run['times'][0] * 1e3:.1f} ms, profiled "
+                       f"{run['times'][-1] * 1e3:.2f} ms); peak {peak:.2f} GB"
+                       f" (worst rank, steps 2-{len(run['times'])}); "
+                       f"{run['seconds']:.1f} s, set-up "
+                       f"{run['setup_s']:.1f} s; on {card}")
+        log("dlrm-mp", f"{what}, rank 0, the last step under "
+                       f"torch.profiler: {run['profile']}")
+    meshes = sum(run["seconds"] for run in ranks[0]["runs"])
+    log("dlrm-mp", f"{n} ranks: {time.perf_counter() - t0:.1f} s, the "
+                   f"meshes {meshes:.1f} s of it on rank 0 (the rest starts "
+                   f"and stops the world)")
+    return ranks[0]["runs"][0]["launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3887,7 +4362,10 @@ def main():
     mixtral_launches = mixtral_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    log("one-card", f"phases 5-12, 14 and 16: "
+    dlrm_launches = dlrm_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("one-card", f"phases 5-12, 14, 16 and 21: "
                     f"{time.perf_counter() - t_one:.1f} s; this process "
                     f"keeps {torch.cuda.memory_reserved() / 1e9:.1f} GB "
                     f"reserved on card 0")
@@ -3910,6 +4388,7 @@ def main():
     pp_launches = timed("pipeline", pipeline_phase)
     mmp_launches = timed("mixtral-mp", mixtral_mp_phase)
     bmp_launches = timed("bert-mp", bert_mp_phase)
+    dlrm_mp_launches = timed("dlrm-mp", dlrm_mp_phase)
     log("phases", f"multi-card phases {phase_s}; whole script "
                   f"{time.perf_counter() - T_START:.1f} s")
     errs.update(fused_errs)
@@ -3925,10 +4404,14 @@ def main():
                       "model-parallel": mp_launches[name],
                       "pipeline": pp_launches[name],
                       "mixtral-mp": mmp_launches[name],
-                      "bert-mp": bmp_launches[name]}
+                      "bert-mp": bmp_launches[name],
+                      "dlrm": dlrm_launches[name],
+                      "dlrm-mp": dlrm_mp_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
-                           "collectives": collectives_launches[name]}
+                           "collectives": collectives_launches[name],
+                           "dlrm": dlrm_launches[name],
+                           "dlrm-mp": dlrm_mp_launches[name]}
                     for name, count in adasum_launches.items()})
     launches.update(adasum_launches)
 
@@ -3966,4 +4449,6 @@ if __name__ == "__main__":
         sys.exit(mixtral_mp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--bert-mp-worker"]:
         sys.exit(bert_mp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dlrm-mp-worker"]:
+        sys.exit(dlrm_mp_worker(sys.argv[2]))
     sys.exit(main())

@@ -19,7 +19,8 @@ from .collectives import (Adasum, Average, Compression, Max, Min, Product,
                           grouped_allreduce, grouped_broadcast,
                           grouped_reducescatter, hierarchical_adasum,
                           hierarchical_allreduce, iterate_with_join, join,
-                          join_allreduce, join_count, reducescatter)
+                          join_allreduce, join_count, reducescatter,
+                          sparse_allreduce)
 from .collectives.ops import broadcast_
 from .core.context_api import (add_process_set, cross_rank, cross_size,
                                cuda_built, device, global_process_set, init,

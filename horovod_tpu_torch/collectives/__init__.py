@@ -12,7 +12,7 @@ from .join import iterate_with_join, join, join_allreduce, join_count
 from .ops import (Adasum, Average, Max, Min, Product, Sum, allgather,
                   allreduce, alltoall, barrier, broadcast, grouped_allgather,
                   grouped_allreduce, grouped_broadcast, grouped_reducescatter,
-                  hierarchical_allreduce, reducescatter)
+                  hierarchical_allreduce, reducescatter, sparse_allreduce)
 
 __all__ = [
     "adasum_allreduce", "hierarchical_adasum", "Compression",
@@ -21,5 +21,5 @@ __all__ = [
     "Adasum", "Average", "Max", "Min", "Product", "Sum", "allgather",
     "allreduce", "alltoall", "barrier", "broadcast", "grouped_allgather",
     "grouped_allreduce", "grouped_broadcast", "grouped_reducescatter",
-    "reducescatter",
+    "reducescatter", "sparse_allreduce",
 ]

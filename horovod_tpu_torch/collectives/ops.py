@@ -478,6 +478,52 @@ def allgather(tensor: torch.Tensor, *,
     return _gather(tensor, _group(process_set), _set_size(process_set))
 
 
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def sparse_allreduce(tensor: torch.Tensor, op: str = Average, *,
+                     process_set: Optional[ProcessSet] = None
+                     ) -> torch.Tensor:
+    """All-reduce a sparse COO tensor as the reference does
+    (``horovod_tpu/torch/mpi_ops.py::sparse_allreduce_async``, upstream
+    Horovod's gather-based scheme): all-gather every member's indices and
+    values, then coalesce, whose sum over duplicate coordinates is the
+    reduction. Sum or Average (the values divided by the member count
+    first). Members may hold different numbers of entries: their counts are
+    all-gathered first (a wait for the card), and each side is padded to
+    the largest, as :func:`~horovod_tpu_torch.collectives.dynamic.
+    allgather_v` pads. Returns a new coalesced tensor; the input is left
+    untouched. A rank outside ``process_set`` gets its input back,
+    coalesced. ``sparse_allreduce.launches`` counts the all-gathers handed
+    to ``torch.distributed``."""
+    if op not in (Sum, Average):
+        raise ValueError(f"sparse allreduce supports Sum and Average, got "
+                         f"{op}")
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce needs a sparse COO tensor")
+    t = tensor.coalesce()
+    n = _set_size(process_set)
+    if not _member(process_set):
+        return t
+    idx = t.indices().t().contiguous()  # [nnz, sparse_dim]
+    vals = t.values() / n if op == Average else t.values()
+    if n > 1:
+        from .dynamic import compact_gathered
+        sizes = allgather(torch.tensor([idx.shape[0]], device=idx.device),
+                          process_set=process_set)
+        most = int(sizes.max())
+        idx = compact_gathered(allgather(_pad_rows(idx, most),
+                                         process_set=process_set), sizes)
+        vals = compact_gathered(allgather(_pad_rows(vals, most),
+                                          process_set=process_set), sizes)
+        sparse_allreduce.launches += 3
+    return torch.sparse_coo_tensor(idx.t(), vals, t.shape).coalesce()
+
+
+sparse_allreduce.launches = 0
+
+
 def grouped_allgather(tensors: Sequence[torch.Tensor], *,
                       process_set: Optional[ProcessSet] = None
                       ) -> List[torch.Tensor]:

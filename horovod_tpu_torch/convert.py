@@ -1,5 +1,5 @@
-"""Carry Llama, Mixtral, ResNet and BERT parameters between the JAX package
-and the port.
+"""Carry Llama, Mixtral, ResNet, BERT and DLRM parameters between the JAX
+package and the port.
 
 :func:`llama_params_from_flax` turns a flax parameter tree (numpy or JAX
 leaves) of ``horovod_tpu.models.llama.Llama`` into a ``state_dict`` of
@@ -30,6 +30,8 @@ The ResNet and BERT pairs (:func:`resnet_params_from_flax`,
 :func:`bert_params_from_flax` and their inverses) do the same for those
 models; ResNet's also carry the ``batch_stats`` collection (the running
 statistics), and its conv kernels go from flax's HWIO to torch's OIHW.
+:func:`dlrm_params_from_flax` flattens DLRM's ``[T, R, D]`` tables to
+``[T R, D]``, under a mesh one ep rank's run of tables.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from .models.bert import Bert
 from .models.llama import logical_names, resolve_scan_layers
 from .models.mixtral import logical_names as mixtral_logical_names
+from .parallel.embedding import TableExchange
 from .parallel.sharding import placement, placement_of
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -357,4 +360,40 @@ def bert_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> Dict:
         pre = f"layers.{i}."
         out[f"layer_{i}"] = {**{n: dense(pre + n + ".") for n in _BERT_DENSE},
                              **{n: norm(pre + n + ".") for n in _BERT_NORMS}}
+    return out
+
+
+# -------------------------------------------------------------------- DLRM
+
+def dlrm_params_from_flax(params: Dict, cfg,
+                          mesh=None) -> Dict[str, torch.Tensor]:
+    """flax DLRM ``params`` (optionally under a ``"params"`` key) -> the
+    port's ``state_dict`` (f32 CPU tensors): dense kernels ``[in, out]``
+    transposed to ``[out, in]``, and ``embedding_tables [T, R, D]`` as this
+    rank's tables flat, ``[T_local R, D]``: all of them without a mesh or
+    an ep split, else the run of tables its ep index owns
+    (``parallel.embedding.table_split``)."""
+    p = params.get("params", params)
+    ex = TableExchange(cfg.num_tables,
+                       mesh.axes.get("ep") if mesh is not None else None)
+    tables = _np(p["embedding_tables"])[ex.first:ex.first + ex.local]
+    sd = {"embedding_tables": tables.reshape(-1, cfg.embed_dim)}
+    for stack, sizes in (("bottom", cfg.bottom_mlp), ("top", cfg.top_mlp)):
+        for i in range(len(sizes)):
+            layer = p[stack][f"fc{i}"]
+            sd[f"{stack}.fc{i}.weight"] = _np(layer["kernel"]).T
+            sd[f"{stack}.fc{i}.bias"] = _np(layer["bias"])
+    return _tensors(sd)
+
+
+def dlrm_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The port's whole ``state_dict`` (every table) -> a flax DLRM
+    parameter tree of numpy arrays."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    out = {"embedding_tables": sd["embedding_tables"].reshape(
+        cfg.num_tables, cfg.rows_per_table, cfg.embed_dim)}
+    for stack, sizes in (("bottom", cfg.bottom_mlp), ("top", cfg.top_mlp)):
+        out[stack] = {f"fc{i}": {"kernel": sd[f"{stack}.fc{i}.weight"].T,
+                                 "bias": sd[f"{stack}.fc{i}.bias"]}
+                      for i in range(len(sizes))}
     return out

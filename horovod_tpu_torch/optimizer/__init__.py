@@ -1,6 +1,8 @@
-"""DistributedOptimizer, SyncBatchNorm, the startup broadcasts and the MoE
-expert-bank optimizer levers."""
+"""DistributedOptimizer, SyncBatchNorm, the startup broadcasts, Adagrad with
+optax's rule (dense and row-sparse) and the MoE expert-bank optimizer
+levers."""
 
+from .adagrad import Adagrad, sparse_adagrad_update
 from .distributed import DistributedOptimizer
 from .functions import (allgather_object, broadcast_object,
                         broadcast_optimizer_state, broadcast_parameters)

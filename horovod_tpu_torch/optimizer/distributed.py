@@ -41,6 +41,26 @@ With ``op=Adasum`` all gradients form ONE bucket: the JAX result has one
 gradient, not one per bucket or per tensor. The hooks then only count, and
 ``synchronize()`` runs :func:`~horovod_tpu_torch.collectives.adasum.
 adasum_allreduce` over all gradients once they are ready.
+
+A sparse gradient (``F.embedding(..., sparse=True)``, the reference's
+``optimizer.py:141-157``) never enters a dense bucket. With
+``sparse_as_dense`` the hook densifies it and it rides its bucket.
+Otherwise it is reduced by :func:`~horovod_tpu_torch.collectives.ops.
+sparse_allreduce` (an all-gather of indices and values, then a coalesce)
+in ``synchronize()``, in parameter order, its values divided by
+``backward_passes_per_step``. Which parameters give sparse gradients is
+learned, not declared: while some parameter has had no gradient on any
+rank, ``synchronize()`` first all-gathers each rank's kind of gradient for
+those parameters (none, dense, or sparse and its sparse dims; the
+reference's ``_exchange_sparse_param_meta``). A parameter found sparse
+leaves its bucket on every rank, and a rank where it got no gradient
+takes part in its all-gathers with an empty one, so no rank waits
+forever. Once every parameter has had a gradient somewhere, no step
+exchanges anything more; a world of one never does. So a dense model pays
+one such all-gather, on its first step (more while a parameter that
+requires a gradient gets none on any rank);
+``DistributedOptimizer.agreements`` counts them where they are handed to
+``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -56,6 +76,16 @@ from ..collectives.compression import Compression, Compressor
 from ..core import context_api as _ctx
 from ..core.config import resolve_fusion_threshold_bytes
 from ..core.process_sets import ProcessSet
+
+#: A parameter's kind of gradient, agreed by the ranks: dense, or
+#: ``_DENSE + sparse_dim`` for a sparse one (0 on a rank: no gradient).
+_DENSE = 1
+
+
+def _kind(grad: Optional[torch.Tensor]) -> int:
+    if grad is None:
+        return 0
+    return _DENSE + grad.sparse_dim() if grad.is_sparse else _DENSE
 
 
 class _Bucket:
@@ -100,12 +130,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, named_parameters, compression: Compressor,
                  backward_passes_per_step: int, op: str,
                  gradient_predivide_factor: float,
-                 process_set: Optional[ProcessSet]):
+                 process_set: Optional[ProcessSet], sparse_as_dense: bool):
         super(self.__class__, self).__init__(params)
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._compression = compression
         self._process_set = process_set
+        self._sparse_as_dense = sparse_as_dense
         self.backward_passes_per_step = backward_passes_per_step
         if named_parameters is not None:
             names = [k for k, _ in named_parameters]
@@ -147,6 +178,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                      divisors[ordered[idxs[0]][0]])
                              for idxs in plan]
         ordered = [p for _, p in ordered]
+        self._ordered = ordered
+        self._kind = {}     # parameter -> its agreed kind of gradient
+        self._sparse = []   # the parameters agreed sparse, in order
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
         self._passes = {p: 0 for p in ordered}
         for p in ordered:
@@ -154,14 +188,25 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     @property
     def buckets(self) -> List[List[torch.nn.Parameter]]:
-        """The fusion buckets, in launch order."""
-        return [b.params for b in self._buckets]
+        """The fusion buckets, in launch order (sparse parameters in none)."""
+        return [b.params for b in self._buckets if b.params]
 
     def _hook(self, p: torch.nn.Parameter) -> None:
+        g = p.grad
+        if g.is_sparse and (self._sparse_as_dense
+                            or self._kind.get(p) == _DENSE):
+            p.grad = g = g.to_dense()
+        elif not g.is_sparse and self._kind.get(p, 0) > _DENSE:
+            p.grad = g = g.to_sparse(self._kind[p] - _DENSE)
         self._passes[p] += 1
         if self._passes[p] < self.backward_passes_per_step:
             return
         self._passes[p] = 0
+        if g.is_sparse:
+            if self._op == _ops.Adasum:
+                raise ValueError("op=Adasum takes no sparse gradient; pass "
+                                 "sparse_as_dense=True")
+            return  # reduced in synchronize(), once the ranks agree on it
         bucket = self._bucket_of[p]
         bucket.pending -= 1
         if bucket.pending == 0 and self._op != _ops.Adasum:
@@ -204,6 +249,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         same collectives."""
         if self._op == _ops.Adasum:
             return self._synchronize_adasum()
+        if not self._sparse_as_dense:
+            self._agree_on_sparse()
         for bucket in self._buckets:
             if bucket.inflight is None and not any(
                     p.requires_grad for p in bucket.params):
@@ -225,6 +272,54 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 off += n
             bucket.inflight = None
             bucket.pending = len(bucket.params)
+        self._reduce_sparse()
+
+    def _agree_on_sparse(self) -> None:
+        """Agree on the kind of gradient of each parameter that has had
+        none on any rank so far: one all-gather of every rank's kinds
+        (module doc). A parameter found sparse leaves its bucket."""
+        unknown = [p for p in self._ordered
+                   if p.requires_grad and p not in self._kind]
+        if not unknown:
+            return
+        kinds = [_kind(p.grad) for p in unknown]
+        if self._world > 1:
+            DistributedOptimizer.agreements += 1
+            kinds = _ops.allgather(
+                torch.tensor([kinds], device=_ctx.device()),
+                process_set=self._process_set).amax(0).tolist()
+        for p, kind in zip(unknown, kinds):
+            if kind == 0:
+                continue
+            self._kind[p] = kind
+            if kind > _DENSE:
+                bucket = self._bucket_of.pop(p)
+                if bucket.replica_set is not None:
+                    raise ValueError("a parameter with a sparse gradient "
+                                     "takes no replica_set group")
+                bucket.params = [q for q in bucket.params if q is not p]
+        self._sparse = [p for p in self._ordered
+                        if self._kind.get(p, 0) > _DENSE]
+
+    def _reduce_sparse(self) -> None:
+        """``sparse_allreduce`` of each sparse gradient, in parameter order;
+        a rank where one got no gradient contributes an empty one."""
+        scale = self._prescale * self._postscale
+        for p in self._sparse:
+            if not p.requires_grad:
+                continue
+            g = p.grad
+            if g is None:
+                dims = self._kind[p] - _DENSE
+                g = torch.sparse_coo_tensor(
+                    torch.zeros((dims, 0), dtype=torch.long,
+                                device=p.device),
+                    p.new_zeros((0,) + tuple(p.shape[dims:])), p.shape)
+            elif scale != 1.0:
+                g = torch.sparse_coo_tensor(g._indices(), g._values() * scale,
+                                            g.shape)
+            p.grad = _ops.sparse_allreduce(g, self._op,
+                                           process_set=self._process_set)
 
     def _synchronize_adasum(self) -> None:
         """Adasum over every gradient as one flat vector. The ``1/k`` of
@@ -265,12 +360,15 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          op: str = _ops.Average,
                          gradient_predivide_factor: float = 1.0,
-                         process_set: Optional[ProcessSet] = None):
+                         process_set: Optional[ProcessSet] = None,
+                         sparse_as_dense: bool = False):
     """Wrap ``optimizer`` so gradients are all-reduced across ranks during
     ``loss.backward()`` (reference ``hvd.DistributedOptimizer``). Needs an
     initialised context. With ``backward_passes_per_step=k`` the gradients of
     k backward passes accumulate locally and are reduced, divided by k, once;
-    call ``step()`` after the k-th."""
+    call ``step()`` after the k-th. A sparse gradient is reduced by
+    ``sparse_allreduce``, or densified first with ``sparse_as_dense``
+    (module doc)."""
     _ctx.context()
     if gradient_predivide_factor != 1.0 and op != _ops.Average:
         raise ValueError(
@@ -281,4 +379,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,
-               process_set)
+               process_set, sparse_as_dense)
+
+
+#: The all-gathers of the kinds of gradient (``_agree_on_sparse``) handed
+#: to ``torch.distributed``, as ``allreduce_async_.launches`` counts its own.
+DistributedOptimizer.agreements = 0

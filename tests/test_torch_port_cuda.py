@@ -25,6 +25,10 @@
 - The MoE's ``sorted_dispatch`` and ``sorted_combine`` forward and
   backward on the card: bit-identical twice, within 1e-6 of the CPU (``-k
   moe``).
+- DLRM's sparse row update on the card: bit-identical twice with
+  duplicate ids, untouched rows unchanged, within 1e-6 of the CPU; and the
+  ep exchange's static-split layout on one card against the plain gather
+  (``-k "sparse_adagrad or table_exchange"``).
 - B1 as the custom op ``hvd::fa_fwd`` launches the kernel for CUDA tensors;
   a bf16 Llama under each remat arm against remat off (``-k remat``).
 - ResNetTiny and a bottleneck ResNet with the space_to_depth stem, f32 with
@@ -388,6 +392,66 @@ def test_moe_dispatch_and_combine_on_the_card(cuda, cap_factor):
     rows = torch.cat([out.reshape(E * C, D), out.new_zeros(1, D)])[plan.dest]
     terms = (rows.reshape(k, T, D) * dy).abs().sum(-1).reshape(-1)
     assert ((first[4].cpu() - ref[4]).abs() <= 1e-6 * terms).all()
+
+
+def test_sparse_adagrad_update_on_the_card(cuda):
+    """DLRM's row update on Criteo-width rows (4 tables of 100,000 x 64,
+    2048 examples, ids drawn from 500 a table so rows repeat): two calls
+    on the same inputs bit-identical (the duplicate sums are sorted
+    segment sums, not atomics), rows no id names bit-unchanged, and the
+    touched rows within 1e-6 relative and 1e-9 absolute of the CPU (the
+    sums of up to about 20 duplicates in another order, through
+    ``g / sqrt(acc)``)."""
+    from horovod_tpu_torch.models.dlrm import sparse_adagrad_update
+    T, R, D, B = 4, 100000, 64, 2048
+    gen = torch.Generator().manual_seed(5)
+    tables = torch.randn((T * R, D), generator=gen) * 0.01
+    accum = torch.full_like(tables, 0.1)
+    ids = (torch.randint(0, 500, (B, T), generator=gen)
+           + torch.arange(T) * R).reshape(-1)
+    grads = torch.randn((B * T, D), generator=gen) * 1e-3
+    want = [t.clone() for t in (tables, accum)]
+    sparse_adagrad_update(*want, ids, grads, 1e-2, 1e-7)
+    outs = []
+    for _ in range(2):
+        got = [t.cuda() for t in (tables, accum)]
+        sparse_adagrad_update(*got, ids.cuda(), grads.cuda(), 1e-2, 1e-7)
+        outs.append([t.cpu() for t in got])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    untouched = torch.ones(T * R, dtype=torch.bool)
+    untouched[ids] = False
+    for got, before, ref in zip(outs[0], (tables, accum), want):
+        assert torch.equal(got[untouched], before[untouched])
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_table_exchange_layout_on_the_card(cuda):
+    """The ep exchange's static-split layout on one card, the all-to-alls
+    done by hand (four ranks, 26 tables split 7, 7, 6, 6, 8 examples a
+    rank, D = 64): every rank receives exactly the whole table's rows at
+    its ids, in table order (``torch.equal`` with the plain gather)."""
+    from horovod_tpu_torch.parallel import embedding
+    n, b, T, R, D = 4, 8, 26, 1000, 64
+    whole = torch.randn(T * R, D, device="cuda")
+    sizes = embedding.table_split(T, n)
+    starts = np.cumsum((0,) + sizes)
+    ids = [torch.randint(0, R, (b, T), device="cuda") for _ in range(n)]
+    sent = [embedding.by_owner(x, sizes).split([b * s for s in sizes])
+            for x in ids]
+    back = []
+    for j in range(n):
+        mine = torch.cat([sent[i][j] for i in range(n)]).reshape(-1,
+                                                                 sizes[j])
+        fid = (mine + torch.arange(sizes[j], device="cuda") * R).reshape(-1)
+        back.append(whole[starts[j] * R:starts[j + 1] * R][fid].split(
+            b * sizes[j]))
+    for i in range(n):
+        looked = embedding.from_owners(
+            torch.cat([back[j][i] for j in range(n)]), sizes, b)
+        fid = (ids[i] + torch.arange(T, device="cuda") * R).reshape(-1)
+        assert torch.equal(looked, whole[fid].reshape(b, T, D))
 
 
 @pytest.mark.parametrize("arm", ["dots", "dots_attn", "attn", "full"])

@@ -49,7 +49,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    "parallel/ulysses.py", "parallel/moe.py",
                    "models/mixtral.py", "optimizer/moe_opt.py",
                    "parallel/sharding.py", "parallel/pipeline.py",
-                   "convert.py", "train/losses.py"):
+                   "convert.py", "train/losses.py", "models/dlrm.py",
+                   "parallel/embedding.py", "optimizer/adagrad.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -212,15 +213,17 @@ def test_sync_batch_norm_in_a_world_of_one_issues_no_collective(monkeypatch):
         thvd.shutdown()
 
 
-@pytest.mark.parametrize("make", ["resnet", "bert"])
+@pytest.mark.parametrize("make", ["resnet", "bert", "dlrm"])
 def test_models_default_to_the_card(make):
     """Without a device and without an initialised context the models are
     made on "cuda": here, with no card, that raises instead of falling back
     to the CPU."""
     from horovod_tpu_torch.models.bert import Bert, bert_tiny
+    from horovod_tpu_torch.models.dlrm import DLRM, dlrm_tiny
     from horovod_tpu_torch.models.resnet import ResNetTiny
     build = {"resnet": lambda: ResNetTiny(num_classes=10),
-             "bert": lambda: Bert(bert_tiny())}[make]
+             "bert": lambda: Bert(bert_tiny()),
+             "dlrm": lambda: DLRM(dlrm_tiny())}[make]
     assert not thvd.is_initialized()
     if torch.cuda.is_available():
         assert next(build().parameters()).is_cuda
