@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch/H100 port (``horovod_tpu_torch``) on one card,
 and of its Adasum, hierarchical, collective, context-parallel,
 expert-parallel, model-parallel (Llama, Mixtral, BERT), pipeline and DLRM
-paths across up to four cards where the machine has them.
+paths across up to four cards where the machine has them, then of its
+torch frontend and the step's guards (sentinel, watchdog, ``scan_steps``,
+autotuner).
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the script exits nonzero.
 They run in this order: 1 and 2; the one-card phases (5-12, 14, 16, 21) on
-card 0; then the multi-card phases (3, 4, 13, 15, 17-20, 22), each printing
-its seconds, and the whole script's. On four cards or more, the 2-rank worlds
+card 0; then the multi-card phases (3, 4, 13, 15, 17-20, 22) and the
+phases of the frontend and the guards (23-25), each printing its seconds,
+and the whole script's. On four cards or more, the 2-rank worlds
 of phases 18 and 19 run on cards 2 and 3 beside the one-card phases
 (``LANE_PHASES``), and phases 13, 15 and 17 start their 4-rank world alone:
 it splits every axis their 2-rank world splits (``FOUR_ALONE``).
@@ -311,6 +314,54 @@ it splits every axis their 2-rank world splits (``FOUR_ALONE``).
    median, least and most ms, examples/s/GPU, the worst rank's peak
    memory and rank 0's device time by group, NCCL apart.
 
+23. frontend — upstream's synthetic benchmark loop
+   (``examples/pytorch/pytorch_synthetic_benchmark.py`` upstream) through
+   ``horovod_tpu_torch.frontend`` in a world of min(2, cards) ranks:
+   ResNet-50 (space_to_depth stem, bf16), 32 images a rank at 224^2, SGD
+   momentum 0.9, ``Compression.fp16``; ``broadcast_parameters`` and
+   ``broadcast_optimizer_state``, then ``DistributedOptimizer(
+   named_parameters=...)``; 3 warm-up and 10 timed steps (images/s/GPU),
+   and 10 steps of the same loop with the negotiation thread stopped (the
+   port's top-level ``init`` starts none), in blocks of 5 in turns.
+   Requires the ranks' parameter digests equal, and one step through
+   ``synchronize()`` and ``skip_synchronize()`` equal to a plain ``step()``
+   bit for bit (deterministic cuDNN). Then the handle API on 64 MiB tensors
+   of small integers in f32 and bf16, every result exact: each ``*_async``
+   form (all-reduce plain, in place and scaled, grouped and grouped in
+   place, allgather and grouped with uneven first dims, broadcast both
+   ways, alltoall with uneven splits, reducescatter and grouped),
+   ``poll`` until done, a pair of named all-reduces submitted in opposite
+   orders on alternate ranks, ``allreduce_fused_async_`` over 8 tensors
+   against each alone, ``sparse_allreduce_async``, and ``poll`` of an
+   unknown handle raising. Prints the negotiation's cycles and ms per op
+   (submission to launch) and a 64 MiB Sum through a handle against
+   ``torch.distributed`` directly.
+24. guards — the 2-layer Llama-3-8B-width model, 2 x 2048 tokens a rank,
+   bf16, flash on (B1-B3), AdamW, ``make_train_step`` in a world of 4 ranks
+   on four cards (alone, as ``FOUR_ALONE``), else of min(2, cards). 3 clean
+   steps with the sentinel off and 3 with it on from the same state:
+   bit-identical losses and parameter digests. The sentinel's cost a
+   step: 20 warm steps of one model with it off and 20 with it on, in
+   turns, after 2 of each.
+   A NaN loss on rank 1 (rank 0 in a world of one): verdict ``skip``,
+   ``steps_skipped == 1``, parameters and AdamW state unchanged on every
+   rank (per-tensor digests). One bit of one parameter flipped on the last
+   rank: ``evict`` naming it on 4 ranks, ``abort`` on 2 (an ``evict_fn``
+   records the action). ``scan_steps=4``: one call equals 4 single calls,
+   bit for bit, in the last loss and the digest; the ms a step both ways.
+   ``StepAutotuner`` over the fusion threshold (``LogIntDim(1 MiB, 256
+   MiB)``), 4 trials of 3 steps: converges, every rank chooses alike, and
+   the step counter advances on every trial step.
+25. watchdog — it needs two ranks: on one card it prints that and runs
+   nothing. A world of 2 ranks (a 1024 x 1024 linear model) with
+   ``HOROVOD_STEP_TIMEOUT_SECONDS=5``; rank 1 holds back its second step.
+   Rank 0's monitored step must raise ``HorovodInternalError`` within the
+   deadline plus 2 s, with the communicators aborted (its next all-reduce
+   fails); it prints whether the card's queue drained after the abort. A
+   second world with ``HOROVOD_STEP_TIMEOUT_ACTION=exit`` must end rank 0
+   with exit code 73; on four cards it runs on cards 2 and 3 beside the
+   first.
+
 After phase 5, B1, B2 and B3 are also held and timed at the tp-local head
 counts of the main shape (16 heads at tp 2, 8 at tp 4: ``tp-kernels``).
 
@@ -328,8 +379,10 @@ steps), ``mixtral-ep`` (phase 15, rank 0's steps), ``model-parallel``
 rank 0's steps before ``pair=``), ``mixtral-mp`` (phase 19, rank 0's
 second step on ``{"fsdp": 2, "ep": 2}`` at 6 layers; on 2 cards its parity
 steps), ``bert-mp`` (phase 20, rank 0's second step of its first
-24-layer run), ``dlrm`` (phase 21, its sparse steps) and ``dlrm-mp`` (phase
-22, rank 0's steps on its first mesh).
+24-layer run), ``dlrm`` (phase 21, its sparse steps), ``dlrm-mp`` (phase
+22, rank 0's steps on its first mesh), ``frontend`` and ``watchdog``
+(phases 23 and 25: no kernel runs on them) and ``guards`` (phase 24, rank
+0's clean steps with the sentinel on).
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -981,8 +1034,10 @@ def run_world(phase, n, env=None, limit=900):
     return slot["ranks"]
 
 
-def _run_world(phase, n, env=None, limit=900):
-    """:func:`run_world`'s world."""
+def _run_world(phase, n, env=None, limit=900, codes=None):
+    """:func:`run_world`'s world. ``codes``: each rank's expected exit code
+    (default 0); a rank expected to exit otherwise writes no result."""
+    codes = codes or [0] * n
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -1002,18 +1057,19 @@ def _run_world(phase, n, env=None, limit=900):
             # Poll every rank: one that fails leaves the others waiting in
             # a collective, so stop at the first failure, not at the limit.
             while True:
-                codes = [p.poll() for p in procs]
-                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
-                if bad or None not in codes or time.monotonic() > deadline:
+                got = [p.poll() for p in procs]
+                bad = [r for r, c in enumerate(got)
+                       if c not in (None, codes[r])]
+                if bad or None not in got or time.monotonic() > deadline:
                     break
                 time.sleep(0.5)
-            bad = bad or [r for r, c in enumerate(codes) if c is None]
+            bad = bad or [r for r, c in enumerate(got) if c is None]
             if bad:
                 r = bad[0]
                 with open(os.path.join(d, f"rank{r}.log")) as f:
                     tail = f.read()[-4000:]
-                what = ("timed out" if codes[r] is None
-                        else f"exited {codes[r]}")
+                what = ("timed out" if got[r] is None
+                        else f"exited {got[r]}, expected {codes[r]}")
                 raise AssertionError(f"{phase} rank {r} {what}:\n{tail}")
         finally:
             for p in procs:
@@ -1023,6 +1079,9 @@ def _run_world(phase, n, env=None, limit=900):
                 f.close()
         ranks = []
         for r in range(n):
+            if codes[r]:
+                ranks.append(None)
+                continue
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     return ranks
@@ -4175,6 +4234,634 @@ def dlrm_mp_phase(torch, card):
     return ranks[0]["runs"][0]["launches"]
 
 
+
+# --- slice 12: the torch frontend and the step's guards ----------------------
+
+FE_B = 32              # images a rank: upstream's synthetic benchmark
+FE_WARM, FE_TIMED = 3, 10
+FE_BLOCK = 5           # timed steps a block; blocks alternate the thread
+FE_BYTES = 64 << 20    # each tensor of the handle API's checks
+GUARD_B, GUARD_T = 2, 2048
+GUARD_CLEAN = 3        # clean steps each way, sentinel off and on
+GUARD_WARM, GUARD_TIMED = 2, 20  # the sentinel's cost: steps an arm
+GUARD_SCAN = 4
+GUARD_TRIALS, GUARD_TRIAL_STEPS = 4, 3
+WD_TIMEOUT = 5.0       # HOROVOD_STEP_TIMEOUT_SECONDS of the watchdog worlds
+WD_HOLD = WD_TIMEOUT + 3.0  # past the deadline and its 2 s of grace
+
+
+def _digest(torch, tensors):
+    """The sentinel's XOR-fold digest of ``tensors`` as an unsigned word."""
+    from horovod_tpu_torch.core.sentinel import param_digest
+    return int(param_digest(list(tensors))) & 0xFFFFFFFF
+
+
+def frontend_worker(out_dir):
+    """One rank of the ``frontend`` phase; writes ``rank<r>.json``."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch
+    from horovod_tpu_torch import frontend as hvd
+    from horovod_tpu_torch.frontend import mpi_ops as fe_ops
+    from horovod_tpu_torch.models.resnet import ResNet50
+    # the port's top-level init starts no negotiation thread; the
+    # frontend's (hvd.init) starts it on the same context
+    horovod_tpu_torch.init()
+    rank, n = hvd.rank(), hvd.size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "checks": {}}
+    checks = out["checks"]
+
+    # upstream's synthetic benchmark loop, through the frontend
+    model = ResNet50(stem="space_to_depth", seed=rank)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01 * n, momentum=0.9)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        opt, named_parameters=model.named_parameters(),
+        compression=hvd.Compression.fp16)
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    data = torch.randn((FE_B, 224, 224, 3), generator=gen, device=dev)
+    target = torch.randint(0, 1000, (FE_B,), generator=gen, device=dev)
+
+    def benchmark_step(manual=False):
+        opt.zero_grad()
+        loss = F.cross_entropy(model(data), target)
+        loss.backward()
+        if manual:
+            opt.synchronize()
+            with opt.skip_synchronize():
+                opt.step()
+        else:
+            opt.step()
+        return loss
+
+    def timed_steps(k):
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(benchmark_step().item())
+            times.append(time.perf_counter() - t)
+
+    # warm-up with the thread up; then blocks of FE_BLOCK steps with and
+    # without it, in turns (stop and start are collective)
+    times, losses = [], []
+    hvd.init()
+    timed_steps(FE_WARM)
+    times.clear()
+    arm = {"thread": [], "none": []}
+    for b in range(2 * FE_TIMED // FE_BLOCK):
+        on = b % 2 == 0
+        if on:
+            hvd.init()
+        else:
+            fe_ops.stop()
+        timed_steps(FE_BLOCK)
+        arm["thread" if on else "none"] += times
+        times.clear()
+    hvd.init()
+    out["times"], out["times_none"] = arm["thread"], arm["none"]
+    out["losses"] = losses
+    out["digests"] = hvd.allgather_object(_digest(torch, model.parameters()))
+
+    # one step through synchronize() and skip_synchronize() against a
+    # plain step() from the same state, with deterministic cuDNN
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(opt.state_dict()))
+    benchmark_step()
+    plain = [p.detach().clone() for p in model.parameters()]
+    model.load_state_dict(saved[0])
+    opt.load_state_dict(saved[1])
+    benchmark_step(manual=True)
+    checks["skip_synchronize bit for bit"] = all(
+        torch.equal(a, p) for a, p in zip(plain, model.parameters()))
+    del saved, plain, model, opt, data
+    torch.cuda.empty_cache()
+
+    # the handle API on 64 MiB tensors of integers: every Sum is exact
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        numel = FE_BYTES // torch.empty((), dtype=dtype).element_size()
+        base = (torch.arange(numel, device=dev) % 7).to(dtype)
+        x = base * (rank + 1)
+        total = base * sum(range(1, n + 1))
+        h = hvd.allreduce_async(x, op=hvd.Sum, name=f"ar.{dt}")
+        polls = 0
+        while not hvd.poll(h):
+            polls += 1
+            time.sleep(1e-4)
+        checks[f"allreduce_async {dt}"] = torch.equal(hvd.synchronize(h),
+                                                      total)
+        out[f"polls {dt}"] = polls
+        y = x.clone()
+        hvd.synchronize(hvd.allreduce_async_(y, op=hvd.Sum, name=f"ip.{dt}",
+                                             prescale_factor=2.0,
+                                             postscale_factor=0.5))
+        checks[f"allreduce_async_ scaled {dt}"] = torch.equal(y, total)
+        halves = [x[:numel // 2], x[numel // 2:]]
+        got = hvd.synchronize(hvd.grouped_allreduce_async(
+            halves, op=hvd.Sum, name=f"gar.{dt}"))
+        checks[f"grouped_allreduce_async {dt}"] = torch.equal(
+            torch.cat(got), total)
+        ys = [t.clone() for t in halves]
+        hvd.synchronize(hvd.grouped_allreduce_async_(ys, op=hvd.Sum,
+                                                     name=f"gar_.{dt}"))
+        checks[f"grouped_allreduce_async_ {dt}"] = torch.equal(
+            torch.cat(ys), total)
+        g = hvd.synchronize(hvd.allgather_async(x, name=f"ag.{dt}"))
+        checks[f"allgather_async {dt}"] = torch.equal(
+            g, torch.cat([base * (r + 1) for r in range(n)]))
+        gg = hvd.synchronize(hvd.grouped_allgather_async(
+            [x[:rank + 1], x[:4]], name=f"gag.{dt}"))
+        checks[f"grouped_allgather_async uneven {dt}"] = torch.equal(
+            gg[0], torch.cat([base[:r + 1] * (r + 1) for r in range(n)]))
+        b = hvd.synchronize(hvd.broadcast_async(x, n - 1, name=f"bc.{dt}"))
+        checks[f"broadcast_async {dt}"] = torch.equal(b, base * n)
+        b_ = x.clone()
+        hvd.synchronize(hvd.broadcast_async_(b_, 0, name=f"bc_.{dt}"))
+        checks[f"broadcast_async_ {dt}"] = torch.equal(b_, base)
+        # uneven splits: rank r sends (r + i + 1) * numel / (n (n + 1) ...)
+        # rows to member i, the rest to the last
+        unit = numel // (4 * n)
+        splits = [unit * (i + 1) for i in range(n)]
+        splits[-1] += numel - sum(splits)
+        recv, rs = hvd.synchronize(hvd.alltoall_async(
+            x, torch.tensor(splits), name=f"a2a.{dt}"))
+        lo = sum(splits[:rank])
+        want = torch.cat([(base * (r + 1))[lo:lo + splits[rank]]
+                          for r in range(n)])
+        checks[f"alltoall_async splits {dt}"] = torch.equal(recv, want) \
+            and rs.tolist() == [splits[rank]] * n
+        per = numel // n
+        rsc = hvd.synchronize(hvd.reducescatter_async(x, op=hvd.Sum,
+                                                      name=f"rs.{dt}"))
+        checks[f"reducescatter_async {dt}"] = torch.equal(
+            rsc, total[rank * per:(rank + 1) * per])
+        grs = hvd.synchronize(hvd.grouped_reducescatter_async(
+            [x, x[:8 * n]], op=hvd.Sum, name=f"grs.{dt}"))
+        checks[f"grouped_reducescatter_async {dt}"] = torch.equal(
+            grs[1], total[:8 * n][rank * 8:(rank + 1) * 8])
+        # named ops submitted in opposite orders on alternate ranks
+        names = [f"pair.a.{dt}", f"pair.b.{dt}"]
+        if rank % 2:
+            names.reverse()
+        hs = {nm: hvd.allreduce_async(x * (1 + nm.startswith("pair.b")),
+                                      op=hvd.Sum, name=nm) for nm in names}
+        checks[f"opposite orders {dt}"] = torch.equal(
+            hvd.synchronize(hs[f"pair.a.{dt}"]), total) and torch.equal(
+            hvd.synchronize(hs[f"pair.b.{dt}"]), total * 2)
+        # allreduce_fused_async_ over 8 tensors against each alone
+        parts = [t.clone() for t in x.chunk(8)]
+        alone = [hvd.allreduce(t, op=hvd.Sum, name=f"alone.{i}.{dt}")
+                 for i, t in enumerate(parts)]
+        hvd.synchronize(hvd.allreduce_fused_async_(parts, op=hvd.Sum,
+                                                   name=f"fused.{dt}"))
+        checks[f"allreduce_fused_async_ {dt}"] = all(
+            torch.equal(a, b) for a, b in zip(alone, parts))
+        del x, y, base, total, g, gg, b, b_, recv, rsc, grs, parts, alone
+    rows = 1 << 16
+    dense = torch.zeros(rows, 64, device=dev)
+    dense[rank::n + 1] = rank + 1.0
+    sp = hvd.synchronize(hvd.sparse_allreduce_async(
+        dense.to_sparse_coo(), op=hvd.Sum, name="sparse"))
+    want = torch.zeros_like(dense)
+    for r in range(n):
+        want[r::n + 1] += r + 1.0
+    checks["sparse_allreduce_async"] = torch.equal(sp.to_dense(), want)
+    del dense, sp, want
+    checks["poll of an unknown handle raises"] = False
+    try:
+        hvd.poll(1 << 30)
+    except ValueError:
+        checks["poll of an unknown handle raises"] = True
+    # the negotiation's price: a 64 MiB all-reduce through a handle against
+    # the same all-reduce handed to torch.distributed directly
+    import torch.distributed as dist
+    buf = torch.ones(FE_BYTES // 4, device=dev)
+    fe, direct = [], []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hvd.allreduce(buf, op=hvd.Sum, name=f"timed.{i}")
+        fe.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        direct.append(time.perf_counter() - t)
+    out["fe_s"], out["direct_s"] = fe[2:], direct[2:]
+    out["stats"] = hvd.negotiation_stats()
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def frontend_phase(torch, card):
+    """The ``frontend`` phase (module doc). Returns the launches of B1-B5
+    on this path: none runs on it."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    cards = torch.cuda.device_count()
+    n = min(2, cards)
+    env = {"CUDA_VISIBLE_DEVICES": "0,1"} if cards > 2 else None
+    ranks = run_world("frontend", n, env, limit=300)
+    r0 = ranks[0]
+    bad = {k: v for res in ranks for k, v in res["checks"].items() if not v}
+    if bad:
+        raise AssertionError(f"frontend: checks failed: {sorted(bad)}")
+    if len(set(r0["digests"])) != 1:
+        raise AssertionError(f"frontend: the ranks' parameter digests "
+                             f"differ: {r0['digests']}")
+    if not all(math.isfinite(x) for x in r0["losses"]):
+        raise AssertionError(f"frontend: non-finite loss {r0['losses']}")
+    timed, alone = r0["times"], r0["times_none"]
+    step_s, alone_s = _median(timed), _median(alone)
+    st = r0["stats"]
+    log("frontend", f"upstream's synthetic benchmark through "
+                    f"horovod_tpu_torch.frontend, {n} rank(s): ResNet-50 "
+                    f"(space_to_depth stem, bf16), {FE_B} images a rank at "
+                    f"224^2, SGD momentum 0.9, Compression.fp16, "
+                    f"broadcast_parameters and broadcast_optimizer_state, "
+                    f"{FE_WARM} warm-up and {FE_TIMED} timed steps: step "
+                    f"{_spread(timed)}, {FE_B / step_s:.1f} images/s/GPU; "
+                    f"the same loop without the negotiation thread (the "
+                    f"port's top-level init), {FE_TIMED} steps in blocks "
+                    f"of {FE_BLOCK} in turns with the above: "
+                    f"{_spread(alone)}, {FE_B / alone_s:.1f} images/s/GPU; "
+                    f"losses {r0['losses'][0]:.4f} ... "
+                    f"{r0['losses'][-1]:.4f}; parameter digests equal "
+                    f"({r0['digests'][0]:#010x}); a step through "
+                    f"synchronize() and skip_synchronize() equals step() "
+                    f"bit for bit; on {card}")
+    log("frontend", f"handle API on 64 MiB tensors, f32 and bf16, "
+                    f"{len(r0['checks'])} checks exact: "
+                    f"{', '.join(sorted(r0['checks']))}; polls before the "
+                    f"64 MiB all-reduce completed: f32 {r0['polls float32']}"
+                    f", bf16 {r0['polls bfloat16']}")
+    log("frontend", f"negotiation on rank 0: {st['cycles']} cycles, "
+                    f"{st['ops']} ops, a median of {st['ms_per_op']:.3f} ms "
+                    f"per op from submission to launch where rank 0 "
+                    f"submitted last ({st['last_ops']} ops; the mean over "
+                    f"all {1e3 * st['wait_s'] / max(st['ops'], 1):.3f} ms, "
+                    f"first uses and waits for the peer included); a 64 "
+                    f"MiB f32 Sum through a "
+                    f"handle, median {_median(r0['fe_s']) * 1e3:.3f} ms (min "
+                    f"{min(r0['fe_s']) * 1e3:.3f}), against torch.distributed"
+                    f" directly, median {_median(r0['direct_s']) * 1e3:.3f} "
+                    f"ms (min {min(r0['direct_s']) * 1e3:.3f}), "
+                    f"{len(r0['fe_s'])} of each in turns; on {card}")
+    return dict.fromkeys([*fa.KERNELS, *fused.KERNELS], 0)
+
+
+def guards_worker(out_dir):
+    """One rank of the ``guards`` phase; writes ``rank<r>.json``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import context_api
+    from horovod_tpu_torch.core import sentinel as S
+    from horovod_tpu_torch.models import llama as hvd_llama
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import (create_train_state, make_train_step,
+                                         next_token_loss)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cfg = dataclasses.replace(hvd_llama.llama3_8b(), n_layers=2,
+                              use_flash=True, remat=False)
+    model = hvd_llama.Llama(cfg, seed=0)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    tokens = torch.randint(0, cfg.vocab_size, (GUARD_B, GUARD_T),
+                           generator=gen, device="cuda")
+    clean = torch.ones((), device="cuda")
+    poison = torch.full((), float("nan") if rank == 1 or n == 1 else 1.0,
+                        device="cuda")
+    out = {"rank": rank, "n": n}
+    opt = step = None
+
+    def loss_fn(logits, labels):
+        toks, f = labels
+        return next_token_loss(logits, toks) * f
+
+    def fresh(sentinel, **kw):
+        nonlocal opt, step
+        opt = step = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        model.load_state_dict(init)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        step = make_train_step(model, opt, loss_fn, sentinel=sentinel, **kw)
+        return create_train_state(model, opt, broadcast=False)
+
+    def run(state, flag, k=1, fn=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = (fn or step)(state, tokens, (tokens, flag))
+        loss = loss.item()
+        return state, loss, (time.perf_counter() - t) / k
+
+    def opt_tensors():
+        return [v for s in opt.state.values() for v in s.values()
+                if torch.is_tensor(v)]
+
+    state = fresh(False)
+    run(state, clean)  # warm-up: NCCL, cuBLAS, the kernels' first calls
+    # the sentinel's cost: warm steps of one model, the two arms in turns
+    # (two steps over one optimizer, each with its own gate)
+    state = fresh(False)
+    arm_steps = {"off": step,
+                 "on": make_train_step(model, opt, loss_fn,
+                                       sentinel=S.Sentinel())}
+    cost = {"off": [], "on": []}
+    for i in range(GUARD_WARM + GUARD_TIMED):
+        for name in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            state, loss, dt = run(state, clean, fn=arm_steps[name])
+            if i >= GUARD_WARM:
+                cost[name].append(dt)
+    out["cost"] = cost
+    del arm_steps
+    # bit-identity: 3 clean steps each way from the same state
+    arms = {}
+    for name, sentinel in (("off", False), ("on", S.Sentinel())):
+        state = fresh(sentinel)
+        if name == "on":
+            fa.reset_launch_counts()
+        losses = []
+        for _ in range(GUARD_CLEAN):
+            state, loss, _ = run(state, clean)
+            losses.append(loss)
+        if name == "on":
+            out["launches"] = {k: f.launches for k, f in fa.KERNELS.items()}
+        arms[name] = {"losses": losses,
+                      "digest": _digest(torch, model.parameters())}
+    out["arms"] = arms
+    # a NaN step: rank 1's loss times NaN (the only rank's in a world of 1)
+    s = S.active()
+    seen = []
+    s.evict_fn = lambda action: seen.append(list(action))
+    before = ([_digest(torch, [p]) for p in model.parameters()],
+              [_digest(torch, [v]) for v in opt_tensors()])
+    state, loss, _ = run(state, poison)
+    after = ([_digest(torch, [p]) for p in model.parameters()],
+             [_digest(torch, [v]) for v in opt_tensors()])
+    out["nan"] = {"unchanged": before == after, "loss": loss,
+                  "counters": s.counters(),
+                  "verdicts": [h[1] for h in s.history]}
+    # one flipped bit of one parameter on the last rank
+    if n > 1:
+        if rank == n - 1:
+            with torch.no_grad():
+                w = next(model.parameters())
+                w.view(-1)[:1].view(torch.int32).bitwise_xor_(1 << 5)
+        state, loss, _ = run(state, clean)
+        out["flip"] = seen
+    # scan_steps: one call of 4 against 4 single calls, the sentinel on
+    state = fresh(S.Sentinel())
+    singles, t_single = [], []
+    for _ in range(GUARD_SCAN):
+        state, loss, dt = run(state, clean)
+        singles.append(loss)
+        t_single.append(dt)
+    d_single = _digest(torch, model.parameters())
+    state = fresh(S.Sentinel(), scan_steps=GUARD_SCAN)
+    state, loss, _ = run(state, clean, GUARD_SCAN)
+    equal = loss == singles[-1] \
+        and _digest(torch, model.parameters()) == d_single
+    # timed on a second call: the first allocates the AdamW state, which
+    # the median of the single steps leaves out
+    state, _, dt_scan = run(state, clean, GUARD_SCAN)
+    out["scan"] = {"singles": singles, "scan_loss": loss, "equal": equal,
+                   "single_ms": [t * 1e3 for t in t_single],
+                   "scan_ms": dt_scan * 1e3, "step": state.step}
+    # the autotuner over the fusion threshold
+    cfg_ = context_api.context().config
+    cfg_.autotune_warmup_samples = 2
+    cfg_.autotune_max_samples = GUARD_TRIALS
+    cfg_.autotune_steps_per_sample = GUARD_TRIAL_STEPS
+    state = fresh(False, autotune=True)
+    # each trial: one warm-up step and its timed steps; then the choice
+    steps = GUARD_TRIALS * (GUARD_TRIAL_STEPS + 1) + 1
+    for _ in range(steps):
+        state, loss, _ = run(state, clean)
+    tuner = step.tuner
+    out["autotune"] = {"step": state.step, "steps": steps,
+                       "chosen": step.chosen,
+                       "trials": [[p["fusion_threshold_bytes"], y]
+                                  for p, y in zip(tuner._params, tuner._y)],
+                       "buckets": len(opt.buckets), "loss": loss}
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def guards_phase(torch, card):
+    """The ``guards`` phase (module doc). Returns rank 0's launches of B1-B5
+    over its clean steps with the sentinel on."""
+    from horovod_tpu_torch.ops import fused
+    cards = torch.cuda.device_count()
+    n = 4 if cards >= 4 else min(cards, 2)
+    env = ({"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+           if n < cards else None)
+    ranks = run_world("guards", n, env, limit=600)
+    r0 = ranks[0]
+    what = (f"guards, {n} rank(s), llama3_8b width at 2 layers, "
+            f"{GUARD_B} x {GUARD_T} tokens a rank, bf16, flash on, AdamW, "
+            f"make_train_step")
+    for res in ranks:
+        on, off = res["arms"]["on"], res["arms"]["off"]
+        if on["losses"] != off["losses"] or on["digest"] != off["digest"]:
+            raise AssertionError(f"{what}: rank {res['rank']}: the sentinel "
+                                 f"changed a clean step: losses "
+                                 f"{on['losses']} vs {off['losses']}, "
+                                 f"digests {on['digest']:#x} vs "
+                                 f"{off['digest']:#x}")
+        nan = res["nan"]
+        if not (nan["unchanged"] and nan["counters"]["steps_skipped"] == 1
+                and nan["verdicts"] == ["skip"]):
+            raise AssertionError(f"{what}: rank {res['rank']}: the NaN step "
+                                 f"was not skipped cleanly: {nan}")
+        scan = res["scan"]
+        if not scan["equal"] or scan["step"] != 2 * GUARD_SCAN:
+            raise AssertionError(f"{what}: rank {res['rank']}: scan_steps="
+                                 f"{GUARD_SCAN} {res['scan']}")
+        at = res["autotune"]
+        if at["step"] != at["steps"] or at["chosen"] is None:
+            raise AssertionError(f"{what}: rank {res['rank']}: the "
+                                 f"autotuner {at}")
+        if at != r0["autotune"]:
+            raise AssertionError(f"{what}: the ranks' autotuners disagree: "
+                                 f"{at} vs {r0['autotune']}")
+    want = (["evict", n - 1] if n >= 4 else ["abort", None]) if n > 1 \
+        else None
+    for res in ranks:
+        if want is not None and [res["flip"][0][:2]] != [want]:
+            raise AssertionError(f"{what}: the flipped bit on rank {n - 1} "
+                                 f"gave {res['flip']}, expected {want}")
+    for name, count in r0["launches"].items():
+        if count < 2 * GUARD_CLEAN:
+            raise AssertionError(f"{what}: {name} launched {count} times in "
+                                 f"{GUARD_CLEAN} steps of 2 layers")
+    off = r0["arms"]["off"]
+    c_on, c_off = r0["cost"]["on"], r0["cost"]["off"]
+    m_on, m_off = _median(c_on), _median(c_off)
+    paired = _median([a - b for a, b in zip(c_on, c_off)])
+    log("guards", f"{what}: {GUARD_CLEAN} clean steps sentinel off and on "
+                  f"from one state, bit-identical losses {off['losses']} and"
+                  f" digests ({off['digest']:#010x}); B1-B3 launches with "
+                  f"it on {r0['launches']}; on {card}")
+    log("guards", f"{what}: the sentinel's cost, rank 0, {GUARD_TIMED} warm "
+                  f"steps an arm in turns after {GUARD_WARM} each: step off "
+                  f"{_spread(c_off)}, on {_spread(c_on)}; the difference "
+                  f"of the medians {(m_on - m_off) * 1e3:.3f} ms "
+                  f"({(m_on - m_off) / m_off:.2%}), the median of the "
+                  f"paired differences {paired * 1e3:.3f} ms "
+                  f"({paired / m_off:.2%}); on {card}")
+    log("guards", f"{what}: a NaN loss on rank {1 if n > 1 else 0} gives "
+                  f"'skip', parameters and AdamW state bitwise unchanged on "
+                  f"every rank (per-tensor digests), steps_skipped 1"
+                  + (f"; one flipped bit on rank {n - 1}: "
+                     f"{ranks[0]['flip'][0][:2]}" if n > 1 else
+                     "; a world of one has no replica to compare"))
+    sc = r0["scan"]
+    log("guards", f"{what}: scan_steps={GUARD_SCAN} with the sentinel, one "
+                  f"call equals {GUARD_SCAN} single calls bit for bit (last "
+                  f"loss {sc['scan_loss']}, digest); "
+                  f"{sc['scan_ms']:.1f} ms a step folded (a second call) "
+                  f"against {_median(sc['single_ms']):.1f} ms single "
+                  f"(median of {GUARD_SCAN}); on {card}")
+    at = r0["autotune"]
+    log("guards", f"{what}: StepAutotuner over the fusion threshold "
+                  f"(LogIntDim(1 MiB, 256 MiB)), {GUARD_TRIALS} trials of "
+                  f"{GUARD_TRIAL_STEPS} steps (+1 warm-up each): trials "
+                  f"{at['trials']} (bytes, steps/s, the largest time over "
+                  f"the ranks); chosen {at['chosen']}, {at['buckets']} "
+                  f"buckets; the step counter at {at['step']} after "
+                  f"{at['steps']} steps; on {card}")
+    counts = dict.fromkeys(fused.KERNELS, 0)
+    counts.update(r0["launches"])
+    return counts
+
+
+def watchdog_worker(out_dir):
+    """One rank of a ``watchdog`` world; writes ``rank<r>.json`` unless its
+    monitor ends the process."""
+    import threading
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import watchdog
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.train import create_train_state, make_train_step
+    hvd.init()
+    rank = hvd.rank()
+    model = torch.nn.Linear(1024, 1024, device="cuda")
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.01))
+    step = make_train_step(model, opt,
+                           lambda y, t: (y - t).square().mean())
+    state = create_train_state(model, opt)
+    x = torch.randn(64, 1024, device="cuda")
+    state, _ = step(state, x, x)
+    torch.cuda.synchronize()
+    out = {"rank": rank}
+    if rank == 1:
+        time.sleep(WD_HOLD)  # holds back its second step
+    else:
+        t0 = time.monotonic()
+        try:
+            step(state, x, x)
+            out["raised"] = None
+        except HorovodInternalError as e:
+            out["raised"] = str(e)
+        out["seconds"] = time.monotonic() - t0
+        out["aborted"] = watchdog.monitor().aborted
+        try:
+            hvd.allreduce(torch.ones(1, device="cuda"))
+            out["next"] = "returned"
+        except Exception as e:  # noqa: BLE001 — the kind is the reading
+            out["next"] = type(e).__name__
+        # does the card drain its queue once the communicator is aborted?
+        done = threading.Event()
+        t1 = time.monotonic()
+        threading.Thread(target=lambda: (torch.cuda.synchronize(),
+                                         done.set()), daemon=True).start()
+        out["drained"] = done.wait(10.0)
+        out["drain_s"] = time.monotonic() - t1
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    os._exit(0)  # the world is aborted; nothing to tear down
+
+
+def watchdog_phase(torch, card):
+    """The ``watchdog`` phase (module doc). Returns the launches of B1-B5
+    on this path: none runs on it."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    zeros = dict.fromkeys([*fa.KERNELS, *fused.KERNELS], 0)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("watchdog", "one card: the hang needs a peer, one process a "
+                        "card; on one card the phase runs nothing")
+        return zeros
+    import threading
+    env = {"HOROVOD_STEP_TIMEOUT_SECONDS": str(WD_TIMEOUT),
+           "CUDA_VISIBLE_DEVICES": "0,1"}
+    # the exit world: on cards 2 and 3 beside the raise world where there
+    # are four, else after it
+    exit_env = dict(env, HOROVOD_STEP_TIMEOUT_ACTION="exit")
+    exited = {}
+
+    def exit_world():
+        t = time.perf_counter()
+        try:
+            _run_world("watchdog", 2, exit_env, limit=120, codes=[73, 0])
+        except Exception as e:  # raised below
+            exited["error"] = e
+        exited["seconds"] = time.perf_counter() - t
+
+    side = None
+    if cards >= 4:
+        exit_env["CUDA_VISIBLE_DEVICES"] = "2,3"
+        side = threading.Thread(target=exit_world, name="watchdog exit")
+        side.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_world("watchdog", 2, env, limit=120)
+    finally:
+        if side is not None:
+            side.join()
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    what = (f"watchdog, 2 ranks over NCCL, HOROVOD_STEP_TIMEOUT_SECONDS="
+            f"{WD_TIMEOUT:g}, rank 1 holds back its second step")
+    if not (r0["raised"] and r0["seconds"] <= WD_TIMEOUT + 2.0
+            and r0["aborted"] and r0["next"] != "returned"):
+        raise AssertionError(f"{what}: rank 0 {r0}")
+    if side is None:
+        exit_world()
+    if "error" in exited:
+        raise exited["error"]
+    exit_s = exited["seconds"]
+    log("watchdog", f"{what}: rank 0's monitored step raised "
+                    f"HorovodInternalError after {r0['seconds']:.3f} s "
+                    f"(deadline + 2 s = {WD_TIMEOUT + 2:g} s), the "
+                    f"communicators aborted (the next all-reduce: "
+                    f"{r0['next']}); the card's queue drained after the "
+                    f"abort: {r0['drained']} ({r0['drain_s']:.3f} s); world "
+                    f"{world_s:.1f} s. With HOROVOD_STEP_TIMEOUT_ACTION=exit "
+                    f"rank 0 exited 73, world {exit_s:.1f} s"
+                    f"{' (beside it, cards 2-3)' if side else ''}; rank 1 "
+                    f"held back {WD_HOLD:g} s; on {card}")
+    return zeros
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4389,6 +5076,9 @@ def main():
     mmp_launches = timed("mixtral-mp", mixtral_mp_phase)
     bmp_launches = timed("bert-mp", bert_mp_phase)
     dlrm_mp_launches = timed("dlrm-mp", dlrm_mp_phase)
+    frontend_launches = timed("frontend", frontend_phase)
+    guards_launches = timed("guards", guards_phase)
+    watchdog_launches = timed("watchdog", watchdog_phase)
     log("phases", f"multi-card phases {phase_s}; whole script "
                   f"{time.perf_counter() - T_START:.1f} s")
     errs.update(fused_errs)
@@ -4406,12 +5096,18 @@ def main():
                       "mixtral-mp": mmp_launches[name],
                       "bert-mp": bmp_launches[name],
                       "dlrm": dlrm_launches[name],
-                      "dlrm-mp": dlrm_mp_launches[name]}
+                      "dlrm-mp": dlrm_mp_launches[name],
+                      "frontend": frontend_launches[name],
+                      "guards": guards_launches[name],
+                      "watchdog": watchdog_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name],
                            "dlrm": dlrm_launches[name],
-                           "dlrm-mp": dlrm_mp_launches[name]}
+                           "dlrm-mp": dlrm_mp_launches[name],
+                           "frontend": frontend_launches[name],
+                           "guards": guards_launches[name],
+                           "watchdog": watchdog_launches[name]}
                     for name, count in adasum_launches.items()})
     launches.update(adasum_launches)
 
@@ -4451,4 +5147,10 @@ if __name__ == "__main__":
         sys.exit(bert_mp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--dlrm-mp-worker"]:
         sys.exit(dlrm_mp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--frontend-worker"]:
+        sys.exit(frontend_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--guards-worker"]:
+        sys.exit(guards_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--watchdog-worker"]:
+        sys.exit(watchdog_worker(sys.argv[2]))
     sys.exit(main())

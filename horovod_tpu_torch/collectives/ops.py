@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -83,11 +84,32 @@ def _member(process_set: Optional[ProcessSet]) -> bool:
     return _is_global(process_set) or _ctx.rank() in process_set.ranks
 
 
+_fusion_override = threading.local()
+
+
+@contextlib.contextmanager
+def fusion_threshold_override(bytes_: Optional[int]):
+    """Thread-locally scope the fusion threshold (bytes) to the bucket plans
+    made inside this context — the autotuner's trial value reaches the
+    ``DistributedOptimizer`` it re-plans and nothing else, and nothing leaks
+    if the loop ends before convergence. None follows the config."""
+    prev = getattr(_fusion_override, "value", None)
+    _fusion_override.value = bytes_
+    try:
+        yield
+    finally:
+        _fusion_override.value = prev
+
+
 def _fusion_threshold() -> Optional[int]:
     """Fusion threshold (``HOROVOD_FUSION_THRESHOLD``, bytes) of the
     initialised context: ``0`` disables fusion (one collective per tensor), a
     positive value caps each bucket, None (no context, or a negative value)
-    means one uncapped bucket per dtype."""
+    means one uncapped bucket per dtype. An active
+    :func:`fusion_threshold_override` wins over the config."""
+    ov = getattr(_fusion_override, "value", None)
+    if ov is not None:
+        return int(ov)
     if not _ctx.is_initialized():
         return None
     t = _ctx.context().config.fusion_threshold_bytes

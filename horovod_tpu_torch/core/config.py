@@ -9,8 +9,13 @@ they meant in the original Horovod again:
   ``DistributedOptimizer`` and ``grouped_allreduce`` pack before one NCCL
   all-reduce each (``collectives/ops.py::plan_buckets``); ``0`` sends one
   collective per tensor.
-- The rest of the surface is parsed for script compatibility and read by the
-  later slices of the port (autotune, sentinel, elastic, timeline).
+- ``HOROVOD_AUTOTUNE`` and its sample counts drive ``train.make_train_step``'s
+  live tuning of that threshold (``tools/autotune.py``);
+  ``HOROVOD_SENTINEL`` and its skip and rollback bounds the numeric-integrity
+  sentinel (``core/sentinel.py``); ``HOROVOD_CYCLE_TIME`` the idle wait of
+  the frontend's negotiation thread (``frontend/mpi_ops.py``).
+- The rest of the surface (elastic, timeline, stall checks) is parsed for
+  script compatibility and read by the later slices of the port.
 
 Precedence matches the reference: explicit argument > env > default.
 """

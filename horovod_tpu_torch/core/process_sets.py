@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +46,10 @@ class ProcessSetTable:
         }
         self._groups: Dict[int, object] = {0: None}
         self._layout: Optional[dict] = None  # the layout's groups, by ranks
+        #: Called with each set :meth:`add` makes, on the caller's thread
+        #: after its group, so a listener may make groups of its own in
+        #: the same order on every rank.
+        self.on_add: List[Callable[[ProcessSet], None]] = []
 
     @property
     def global_set(self) -> ProcessSet:
@@ -68,7 +72,14 @@ class ProcessSetTable:
             self._sets[self._next_id] = ps
             self._groups[self._next_id] = group
             self._next_id += 1
-            return ps
+        for listener in list(self.on_add):
+            listener(ps)
+        return ps
+
+    def sets(self) -> List[ProcessSet]:
+        """The sets in the table, in the order they were added."""
+        with self._lock:
+            return [self._sets[i] for i in sorted(self._sets)]
 
     def remove(self, ps: "ProcessSet | int") -> None:
         psid = ps.process_set_id if isinstance(ps, ProcessSet) else int(ps)

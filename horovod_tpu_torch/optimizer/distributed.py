@@ -61,10 +61,26 @@ one such all-gather, on its first step (more while a parameter that
 requires a gradient gets none on any rank);
 ``DistributedOptimizer.agreements`` counts them where they are handed to
 ``torch.distributed``.
+
+The numeric-integrity sentinel (``core/sentinel.py``): while one is
+active, each bucket's local gradients are probed just before its
+all-reduce is launched, on the stream the all-reduce waits on and with no
+wait for the card: the max of ``|g|`` (finite or not) and the f32 sum of
+squares go into small tensors on the card. These are this rank's gradients
+before the reduction, as JAX's ``health_vector(grads, ...)`` sees them, so
+the gathered health vector can name the rank at fault. :meth:`health`
+gathers ``[finite, sqnorm, digest of the parameters]`` from every rank
+into ``[n, 3]``; ``step()`` feeds it to the ladder and applies the update
+only when every rank's gradients were finite. A sparse gradient is not
+probed. ``step()`` runs in the step monitor's span
+(``core/watchdog.py``) and counts ``hvd_frontend_steps_total``;
+:meth:`skip_synchronize` is the reference's, for a ``synchronize()``
+called by hand before ``step()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import List, Optional
 
@@ -74,6 +90,9 @@ from ..collectives import ops as _ops
 from ..collectives.adasum import adasum_allreduce
 from ..collectives.compression import Compression, Compressor
 from ..core import context_api as _ctx
+from ..core import sentinel as _sentinel
+from ..core import telemetry as _telemetry
+from ..core import watchdog as _watchdog
 from ..core.config import resolve_fusion_threshold_bytes
 from ..core.process_sets import ProcessSet
 
@@ -158,38 +177,92 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._prescale = 1.0 / k
             self._postscale = 1.0
         self._world = n
+        self._ordered = [p for g in self.param_groups for p in g["params"]
+                         if p.requires_grad]
+        self._kind = {}     # parameter -> its agreed kind of gradient
+        self._sparse = []   # the parameters agreed sparse, in order
+        self.replan()
+        self._passes = {p: 0 for p in self._ordered}
+        #: The sentinel this optimizer's steps feed and its buckets are
+        #: probed for (None: the active one; False: none).
+        self.sentinel = None
+        self._probes = []   # (finite, sqnorm) a launched bucket, this step
+        self._sentinel_steps = 0
+        self._should_synchronize = True
+        for p in self._ordered:
+            p.register_post_accumulate_grad_hook(_weak_hook(self))
+
+    def replan(self) -> None:
+        """(Re)build the fusion buckets at the current threshold
+        (``HOROVOD_FUSION_THRESHOLD``, or an active
+        ``collectives.ops.fusion_threshold_override``: the autotuner's
+        knob). Between steps only; every rank must re-plan alike."""
+        if any(b.inflight is not None for b in getattr(self, "_buckets", ())):
+            raise AssertionError("replan() with a bucket in flight")
         ordered = [(i, p) for i, g in enumerate(self.param_groups)
-                   for p in g["params"] if p.requires_grad]
+                   for p in g["params"] if p.requires_grad
+                   and self._kind.get(p, _DENSE) == _DENSE]
         sets = [g.get("replica_set") for g in self.param_groups]
         divisors = [g.get("data_shards") for g in self.param_groups]
-        if op == _ops.Adasum:
+        if self._op == _ops.Adasum:
             if any(s is not None for s in sets):
                 raise ValueError("op=Adasum takes no replica_set groups")
             self._buckets = [_Bucket([p for _, p in ordered])]
         else:
             # One bucket never mixes groups: a group may have its own
             # replica set, and a step may freeze a group (no gradient).
-            sizes = [(p.numel() * compression.wire_dtype_for(p.dtype)
-                      .itemsize, (compression.wire_dtype_for(p.dtype), i))
-                     for i, p in ordered]
+            comp = self._compression
+            sizes = [(p.numel() * comp.wire_dtype_for(p.dtype).itemsize,
+                      (comp.wire_dtype_for(p.dtype), i)) for i, p in ordered]
             plan = _ops.plan_buckets(sizes, resolve_fusion_threshold_bytes())
             self._buckets = [_Bucket([ordered[j][1] for j in idxs],
                                      sets[ordered[idxs[0]][0]],
                                      divisors[ordered[idxs[0]][0]])
                              for idxs in plan]
-        ordered = [p for _, p in ordered]
-        self._ordered = ordered
-        self._kind = {}     # parameter -> its agreed kind of gradient
-        self._sparse = []   # the parameters agreed sparse, in order
         self._bucket_of = {p: b for b in self._buckets for p in b.params}
-        self._passes = {p: 0 for p in ordered}
-        for p in ordered:
-            p.register_post_accumulate_grad_hook(_weak_hook(self))
 
     @property
     def buckets(self) -> List[List[torch.nn.Parameter]]:
         """The fusion buckets, in launch order (sparse parameters in none)."""
         return [b.params for b in self._buckets if b.params]
+
+    # -- the sentinel's probe ------------------------------------------------
+
+    def _sentinel_now(self):
+        if self.sentinel is False:
+            return None
+        return self.sentinel if self.sentinel is not None \
+            else _sentinel.active()
+
+    def _probing(self) -> bool:
+        return self._sentinel_now() is not None
+
+    def _probe_grads(self, grads) -> None:
+        """Queue this rank's (finite, sqnorm) of ``grads`` on the current
+        stream, before the all-reduce that will overwrite them."""
+        grads = [g for g in grads if g is not None and not g.is_sparse]
+        if grads:
+            self._probes.append((_sentinel.grads_finite(grads),
+                                 _sentinel.grad_sqnorm(grads)))
+
+    def health(self, gather: bool = True) -> torch.Tensor:
+        """This step's health vector, ``[n, 3]`` over the optimizer's ranks
+        (``[1, 3]``, this rank's row, with ``gather=False``): the finite
+        bit and squared norm of the gradients its buckets probed before
+        their all-reduces, and the digest of its parameters as they stand
+        (call it before the update). Consumes the probes."""
+        probes, self._probes = self._probes, []
+        if probes:
+            finite = torch.stack([f for f, _ in probes]).all()
+            sq = torch.stack([q for _, q in probes]).sum()
+        else:
+            finite = torch.ones((), dtype=torch.bool)
+            sq = torch.zeros(())
+        dev = self._ordered[0].device if self._ordered else finite.device
+        row = _sentinel.local_health(finite.to(dev), sq.to(dev),
+                                     _sentinel.param_digest(self._ordered))
+        return _sentinel.gather_health(
+            row, self._process_set if gather else False)
 
     def _hook(self, p: torch.nn.Parameter) -> None:
         g = p.grad
@@ -213,6 +286,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._launch(bucket)
 
     def _launch(self, bucket: _Bucket) -> None:
+        if self._probing():
+            self._probe_grads([p.grad for p in bucket.params])
         wires = [(p, self._compression.compress(p.grad)) for p in bucket.params]
         if len(wires) == 1 and wires[0][1][0] is bucket.params[0].grad:
             # Reduced in place on the flat path; the hierarchical path pads
@@ -327,6 +402,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         JAX optimizer scales its accumulated gradients before reducing."""
         (bucket,) = self._buckets
         grads = []
+        if self._probing():
+            self._probe_grads([p.grad for p in bucket.params])
         for p in bucket.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -340,9 +417,45 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 p.grad.copy_(g)
         bucket.pending = len(bucket.params)
 
-    def step(self, closure=None):
-        self.synchronize()
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        """For a ``synchronize()`` called by hand before ``step()``: the
+        ``step()`` inside this context does not synchronize again
+        (reference contract)."""
+        self._should_synchronize = False
+        try:
+            yield
+        finally:
+            self._should_synchronize = True
+
+    def apply_update(self, closure=None):
+        """The wrapped optimizer's update on the gradients as they stand:
+        no synchronization, no sentinel. The train steps call it once
+        they have gated the step themselves."""
         return super(self.__class__, self).step(closure)
+
+    def step(self, closure=None):
+        """Synchronize (unless inside :meth:`skip_synchronize`), and apply
+        the update. With a sentinel active the step's health vector goes
+        to the ladder first; the update is withheld (``None`` returned)
+        unless every rank's gradients were finite, and a rollback, evict
+        or abort verdict is carried out."""
+        _telemetry.inc("hvd_frontend_steps_total", frontend="torch")
+        with _watchdog.monitor().step_span("torch_step"):
+            if self._should_synchronize:
+                self.synchronize()
+            s = self._sentinel_now()
+            if s is not None:
+                self._sentinel_steps += 1
+                health = _sentinel.decode_health(self.health())
+                action = s.observe(health, self._sentinel_steps)
+                if action.kind == "rollback":
+                    s.do_rollback(None)
+                elif action.kind in ("evict", "abort"):
+                    s.do_evict(action)
+                if not health.finite:
+                    return None
+            return self.apply_update(closure)
 
     def zero_grad(self, set_to_none: bool = True):
         if any(b.inflight is not None
@@ -351,6 +464,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise AssertionError(
                 "optimizer.zero_grad() was called after loss.backward() but "
                 "before optimizer.step() or optimizer.synchronize()")
+        self._probes = []  # a step's probes never outlive it
         return super(self.__class__, self).zero_grad(set_to_none)
 
 

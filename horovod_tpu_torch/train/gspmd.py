@@ -21,8 +21,13 @@ tokens (its ``replica_set`` group, :func:`mesh_param_groups`), and divided
 by the number of ranks that see different tokens, dp x fsdp x ep x sp.
 
 :func:`make_gspmd_deferred_train_step` is the two-program expert-update
-deferral of ``optimizer.moe_opt.deferred_pair``. ``scan_steps`` and the
-sentinel belong to a later slice (ROADMAP.md, section A).
+deferral of ``optimizer.moe_opt.deferred_pair``. ``make_gspmd_train_step``
+takes the reference's ``scan_steps`` and ``sentinel``; its health vector is
+the single-row form (JAX passes ``axis=None`` on a mesh, where each rank
+holds different blocks): the finite bit, squared norm and digest of the
+whole reduced gradient and parameters, each block counted once
+(:func:`_mesh_health`). Both steps run under the step monitor with
+``what="gspmd_train_step"``.
 
 The objective is the next-token loss, or a ``loss_fn`` that sums a
 shard's terms and counts them (BERT's masked-LM loss,
@@ -37,6 +42,9 @@ import torch
 
 from ..collectives import ops as _ops
 from ..core import context_api as _ctx
+from ..core import sentinel as _sentinel
+from ..core import telemetry as _telemetry
+from ..core.watchdog import monitored_step
 from ..optimizer.distributed import DistributedOptimizer
 from ..optimizer.functions import broadcast_optimizer_state
 from ..optimizer.moe_opt import DeferredPair, Partition, param_groups
@@ -46,7 +54,8 @@ from ..parallel.sharding import (DATA_AXES, gradient_axes, holder_axes,
 from .dp import TrainState
 from .losses import next_token_loss  # noqa: F401  (the JAX module's loss)
 from .losses import vocab_parallel_nll
-from .step_builder import Cadence, accumulate_gradients
+from .step_builder import (Cadence, accumulate_gradients, build_program_set,
+                           fold_scan, make_dispatch)
 
 
 def _data_shards(mesh: Mesh):
@@ -222,11 +231,46 @@ def _sown_aux(model: torch.nn.Module) -> Optional[torch.Tensor]:
     return torch.stack(leaves).sum() if leaves else None
 
 
+def _owns(mesh: Mesh, p: torch.Tensor) -> bool:
+    """Whether this rank is the first holder of ``p``'s block: index 0 on
+    every axis of size > 1 that does not split it."""
+    held = holder_axes(p)
+    return all(mesh.axis(a).index == 0 for a in mesh.axis_names
+               if a not in held and axis_size(mesh, a) > 1)
+
+
+def _mesh_health(model: torch.nn.Module, mesh: Mesh) -> torch.Tensor:
+    """The ``[1, 3]`` health row of the whole model on a mesh, from the
+    reduced gradients (JAX's GSPMD gradient is the global one): each block
+    counted on its first holder alone, the non-finite counts and squared
+    norms summed over the world in one all-reduce, and the digests
+    XOR-ed after one all-gather — the fold is order-free and the blocks
+    partition each tensor, so the result is the digest of the whole
+    parameters. Collective."""
+    owned = [p for p in model.parameters() if _owns(mesh, p)]
+    grads = [p.grad for p in owned if p.grad is not None]
+    finite = _sentinel.grads_finite(grads)
+    dev = owned[0].device if owned else _ctx.device()
+    sums = torch.stack([(~finite).to(dev, torch.float32),
+                        _sentinel.grad_sqnorm(grads).to(dev)])
+    digest = _sentinel.param_digest(owned).to(dev)
+    if _ctx.size() > 1:
+        sums = _ops.allreduce(sums, _ops.Sum)
+        digests = _ops.allgather(digest.reshape(1))
+        digest = torch.zeros_like(digest)
+        for d in digests:
+            digest = digest ^ d
+    row = _sentinel.local_health(sums[0] == 0, sums[1], digest)
+    return row.reshape(1, _sentinel.HEALTH_WIDTH)
+
+
 def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
-               accum_steps: int = 1, loss_fn: Optional[Callable] = None):
+               accum_steps: int = 1, loss_fn: Optional[Callable] = None,
+               sentinel=None):
     """The forward, backward and update of one step with ``optimizer``;
-    returns the step's loss (module doc of :func:`make_gspmd_train_step`).
-    """
+    returns the step's loss, or with a sentinel ``(loss, health)`` (module
+    doc of :func:`make_gspmd_train_step`). ``apply_update`` False is the
+    probe step: no update."""
     shards, world = token_shards(mesh), _ctx.size()
     a = accum_steps
     tp = mesh.axis("tp") if axis_size(mesh, "tp") > 1 else None
@@ -235,7 +279,7 @@ def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
     counted = replica_set(mesh, ("tp", "pp")) if loss_fn is not None \
         else None
 
-    def run(optimizer, batch) -> torch.Tensor:
+    def run(optimizer, batch, apply_update: bool = True):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
@@ -275,13 +319,22 @@ def _step_body(model: torch.nn.Module, mesh: Mesh, aux_weight: float,
                 accumulate_gradients(model, objective, tokens, batch, a)
             else:
                 objective(model(tokens), batch).backward()
-        optimizer.step()
+        health = None
+        optimizer.synchronize()
+        if sentinel is None:
+            optimizer.apply_update()
+        else:
+            health = _mesh_health(model, mesh)
+            if apply_update and bool(health[0, 0] >= 1.0):
+                optimizer.apply_update()
         tot = _ops.allreduce(torch.stack([sum(x) for x in zip(*parts)]),
                              _ops.Sum)
         # every tp rank holds the same sums
         loss = tot[0] / axis_size(mesh, "tp")
         if len(tot) > 1:
             loss = loss + aux_weight * tot[1] / (world * a)
+        if sentinel is not None:
+            return loss, health
         return loss
 
     return run
@@ -291,7 +344,9 @@ def make_gspmd_train_step(model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer, mesh: Mesh, *,
                           loss_fn: Optional[Callable] = None,
                           aux_weight: float = 0.0,
-                          accum_steps: Optional[int] = None):
+                          accum_steps: Optional[int] = None,
+                          scan_steps: Optional[int] = None,
+                          sentinel=None):
     """The train step over ``mesh``: ``step(state, batch) -> (state,
     loss)``, ``batch`` this rank's ``[B/(dp fsdp ep), T/sp]`` shard of the
     global tokens (:func:`shard_tokens`), or a tuple whose first element
@@ -338,20 +393,51 @@ def make_gspmd_train_step(model: torch.nn.Module,
     ``op=Average`` and the groups of :func:`mesh_param_groups`. The ring's
     point-to-point exchanges, the MoE all-to-alls, fsdp's reduce-scatters,
     tp's all-reduces and the bucket reductions are posted during backward
-    in the graph's order, the same on every rank."""
+    in the graph's order, the same on every rank.
+
+    ``scan_steps = k`` runs k steps over the same batch in one call
+    (``step_builder.fold_scan``). ``sentinel`` as in ``train.dp``'s step,
+    with the single-row health vector of the whole model
+    (:func:`_mesh_health`): a step whose reduced gradient is not finite
+    applies no update, the ladder sees every step's row, and fingerprints
+    are not compared."""
     _check_optimizer(optimizer, model, mesh)
+    sentinel = _sentinel.resolve(sentinel)
     a = 1 if accum_steps is None else int(accum_steps)
     passes = getattr(optimizer, "backward_passes_per_step", 1)
     if a != passes:
         raise ValueError(
             f"accum_steps={a} needs an optimizer made with "
             f"backward_passes_per_step={a} (it has {passes})")
-    run = _step_body(model, mesh, aux_weight, a, loss_fn)
+    # The step gates the update itself (it calls synchronize() and
+    # apply_update()), and the mesh row reads the reduced gradient: the
+    # optimizer feeds no sentinel and probes no bucket.
+    optimizer.sentinel = False
+    run = _step_body(model, mesh, aux_weight, a, loss_fn, sentinel)
 
-    def step(state: TrainState, batch):
-        return state._replace(step=state.step + 1), run(optimizer, batch)
+    def make_program(apply_update: bool):
+        def step(state: TrainState, batch):
+            out = run(optimizer, batch, apply_update)
+            state = state._replace(step=state.step + 1)
+            if sentinel is not None:
+                return (state,) + tuple(out)
+            return state, out
 
-    return step
+        if scan_steps is not None:
+            step = fold_scan(step, scan_steps, sentinel is not None)
+        return step
+
+    programs = build_program_set(make_program, sentinel=sentinel)
+    dispatch = make_dispatch(programs, sentinel=sentinel,
+                             scan_steps=scan_steps)
+
+    def marked(state, batch):
+        _telemetry.inc("hvd_dispatches_total", what="gspmd_train_step")
+        return dispatch(state, batch)
+
+    if sentinel is not None:
+        marked.sentinel = sentinel
+    return monitored_step(marked, what="gspmd_train_step")
 
 
 def make_gspmd_deferred_train_step(model: torch.nn.Module, pair: DeferredPair,
@@ -381,4 +467,4 @@ def make_gspmd_deferred_train_step(model: torch.nn.Module, pair: DeferredPair,
             loss = run(opt, batch)
         return state._replace(step=state.step + 1), loss
 
-    return step
+    return monitored_step(step, what="gspmd_train_step")

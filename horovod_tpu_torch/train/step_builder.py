@@ -1,11 +1,22 @@
-"""Gradient accumulation over microbatches, and the pipeline-parallel step.
+"""The step machinery the train steps share: the program set, the host
+dispatch, scan folding, gradient accumulation and the pipeline step.
 
-Counterpart of ``horovod_tpu/train/step_builder.py::accumulate_gradients``
-and of its ``PipelineTrainState``, ``create_pipeline_train_state`` and
-``make_pipeline_train_step`` (at the end of this module), with
-:class:`Cadence`, the host side of the deferred expert-update pair that
-JAX's ``build_program_set`` and ``make_dispatch`` share between its step
-kinds.
+Counterpart of ``horovod_tpu/train/step_builder.py``: ``build_program_set``,
+``make_dispatch``, ``fold_scan``, ``accumulate_gradients``,
+``PipelineTrainState``, ``create_pipeline_train_state`` and
+``make_pipeline_train_step``, with :class:`Cadence`, the host side of the
+deferred expert-update pair.
+
+In torch there are no compiled programs. The JAX package builds up to three
+(``apply``, a cadence's ``skip``, the sentinel's no-update ``probe``); here
+``apply`` and ``probe`` are one step function called with ``apply_update``,
+and :func:`build_program_set` keeps the reference's table of them. The
+cadence's ``skip`` is :class:`Cadence`, which the deferred and pipeline
+steps run. :func:`make_dispatch` is the reference's dispatcher over the
+sentinel's programs, with its counter seeded from ``state.step``. :func:`fold_scan` runs k steps over the same batch in one
+call, keeping the losses and the health rows on the card until one fetch
+at the end.
+
 The JAX package accumulates inside one compiled step with a ``lax.scan``;
 here the microbatches run one after another, each with its own forward and
 backward, and ``p.grad`` accumulates their gradients.
@@ -20,9 +31,91 @@ per step, of the mean gradient.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from ..core import sentinel as _sentinel
+
+
+# ------------------------------------------------------------ program set
+
+def build_program_set(make_program: Callable[[bool], Any], *,
+                      sentinel=None) -> Dict[str, Any]:
+    """The step variants the sentinel needs, as the reference's table:
+    ``apply`` always (``make_program(True)``); the sentinel adds ``probe``
+    (``make_program(False)``: no update anywhere, the suspect state held).
+    ``make_program(apply_update)`` returns a step callable. The
+    reference's cadence program (``skip``) is the deferred step's
+    :class:`Cadence` here."""
+    return {"apply": make_program(True),
+            "probe": make_program(False) if sentinel is not None else None}
+
+
+# --------------------------------------------------------- host dispatch
+
+def make_dispatch(programs: Dict[str, Any], *, sentinel=None,
+                  scan_steps: Optional[int] = None):
+    """The host-side dispatcher over a program set (the reference's).
+
+    Per call: the sentinel's containment state picks ``probe``, otherwise
+    ``apply`` runs. Without a sentinel ``apply`` is returned as it is. The
+    step counter is seeded from ``state.step`` on the first call and
+    advances by ``scan_steps`` a call. The programs return ``(state, loss,
+    health)``, health ``[n, 3]`` or ``[k, n, 3]``; the ladder is fed every
+    row in order, stopping at the first rollback, evict or abort, and the
+    caller gets ``(state, loss)``."""
+    if sentinel is None:
+        return programs["apply"]
+    k = int(scan_steps or 1)
+    step_apply, step_probe = programs["apply"], programs["probe"]
+    counter = {"n": None}
+
+    def dispatch(state, *rest):
+        if counter["n"] is None:
+            counter["n"] = int(state.step)
+        base = counter["n"]
+        counter["n"] += k
+        fn = step_probe if sentinel.in_containment else step_apply
+        new_state, loss, health = fn(state, *rest)
+        raw = health.detach().cpu().numpy()
+        rows = raw if raw.ndim == 3 else raw[None]  # [k, n, 3]
+        for i, row in enumerate(rows):
+            action = sentinel.observe(_sentinel.decode_health(row),
+                                      base + i + 1)
+            if action.kind == "rollback":
+                new_state = sentinel.do_rollback(new_state)
+                break
+            if action.kind in ("evict", "abort"):
+                sentinel.do_evict(action)
+                break
+        return new_state, loss
+
+    return dispatch
+
+
+# ---------------------------------------------------------- scan folding
+
+def fold_scan(inner: Callable, scan_steps: int, with_health: bool):
+    """k consecutive calls of ``inner(state, *data)`` over the same batch
+    in one call (the reference's ``lax.scan`` fold). Returns the last
+    step's loss and, with the sentinel, the ``[k, n, 3]`` stack of the
+    steps' health rows; both stay on the card. Each inner step guards its
+    own update (``inner`` decides it from its health), so a non-finite
+    inner step touches nothing whatever the ladder decides after."""
+    k = int(scan_steps)
+
+    def stepped(state, *data):
+        healths = []
+        for _ in range(k):
+            out = inner(state, *data)
+            state, loss = out[0], out[1]
+            if with_health:
+                healths.append(out[2])
+        if with_health:
+            return state, loss, torch.stack(healths)
+        return state, loss
+    return stepped
 
 
 def _split(x, a: int):

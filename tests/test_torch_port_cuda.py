@@ -51,6 +51,14 @@
   (``-k adasum``): log2(n) launches of B4 and B5 per step, ranks
   bit-identical, and rank 0's first combined gradient held to the plain
   butterfly of the gathered local gradients.
+- The sentinel's digest on the card equal to the CPU's, the
+  ``DistributedOptimizer`` bucket probe's finite bit and squared norm, and
+  a NaN step withheld by ``make_train_step`` with the parameters bitwise
+  unchanged (one GPU); the frontend's handles over NCCL on 2 GPUs (named
+  ops in opposite orders, an uneven allgather, a mismatched name raising on
+  both ranks); the watchdog rescuing a hung NCCL step within its deadline
+  plus 2 s (``-k "digest_on_the_card or health_probe or frontend_handles or
+  watchdog_rescues"``).
 - Data-parallel training across every GPU of the machine over NCCL, for two
   steps, with AdamW (lr 1e-4, weight decay 1e-4, the main path's settings)
   and with SGD and momentum. The ranks end bit-identical, and they are held
@@ -1230,3 +1238,164 @@ def test_bert_tp_runs_b1_b3_on_local_heads_across_gpus(cuda, tmp_path):
         assert r["bert_launches"] == {"fa_fwd": 2, "fa_bwd_dq": 2,
                                       "fa_bwd_dkv": 2}
         assert r["bert_gap"] <= 2 ** -5, r["bert_gap"]
+
+
+# --- slice 12: the sentinel, the frontend and the watchdog on the card -------
+
+def test_param_digest_on_the_card_equals_the_cpu(cuda):
+    """The XOR fold on the card gives the CPU's word, over f32, bf16 and f16
+    leaves, odd lengths and several chunks (the CPU side is held to JAX's
+    in ``test_torch_port_sentinel.py``)."""
+    from horovod_tpu_torch.core.sentinel import param_digest
+    gen = torch.Generator().manual_seed(0)
+    leaves = [torch.randn(3_000_017, generator=gen),
+              torch.randn(1023, 77, generator=gen).bfloat16(),
+              torch.randn(5, generator=gen).half(),
+              torch.zeros(0)]
+    want = int(param_digest(leaves))
+    assert int(param_digest([t.cuda() for t in leaves])) == want
+
+
+def test_health_probe_on_the_card(cuda):
+    """``DistributedOptimizer``'s bucket probe on the card, in a world of
+    one: the finite bit and the squared norm of the gradients it saw before
+    the all-reduce (the squared norm within 1e-5 of the f64 sum), and a
+    NaN gradient's step withheld by ``make_train_step``'s guard with the
+    parameters bitwise unchanged."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import sentinel as S
+    from horovod_tpu_torch.train import create_train_state, make_train_step
+    hvd.init()
+    try:
+        model = torch.nn.Sequential(torch.nn.Linear(256, 512),
+                                    torch.nn.Linear(512, 3)).cuda()
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                       lr=0.1))
+        s = S.Sentinel()
+        step = make_train_step(model, opt,
+                               lambda y, t: (y - t).square().mean() * t[0, 0],
+                               sentinel=s)
+        rows = []
+        real = opt.health
+        opt.health = lambda *a, **k: rows.append(real(*a, **k)) or rows[-1]
+        state = create_train_state(model, opt)
+        x = torch.randn(8, 256, device="cuda")
+        t = torch.ones(8, 3, device="cuda")
+        state, _ = step(state, x, t)
+        grads = [p.grad.double() for p in model.parameters()]
+        sq = float(sum(g.square().sum() for g in grads))
+        assert rows[0][0, 0].item() == 1.0
+        assert abs(rows[0][0, 1].item() - sq) <= 1e-5 * sq
+        before = [p.detach().clone() for p in model.parameters()]
+        t[0, 0] = float("nan")
+        state, _ = step(state, x, t)
+        assert rows[1][0, 0].item() == 0.0 and s.steps_skipped == 1
+        assert all(torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+    finally:
+        hvd.shutdown()
+
+
+_FRONTEND_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    from horovod_tpu_torch import frontend as hvd
+
+    out_dir, _, name = sys.argv[1:4]
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    out = {}
+    x = torch.arange(1 << 20, device="cuda", dtype=torch.float32) % 5
+    names = ["a", "b"] if rank == 0 else ["b", "a"]
+    hs = {nm: hvd.allreduce_async(x * (rank + 1) * (1 + (nm == "b")),
+                                  op=hvd.Sum, name=nm) for nm in names}
+    total = x * sum(range(1, n + 1))
+    out["opposite"] = (torch.equal(hvd.synchronize(hs["a"]), total)
+                       and torch.equal(hvd.synchronize(hs["b"]), 2 * total))
+    g = hvd.allgather(torch.full((rank + 1, 3), float(rank), device="cuda"))
+    out["allgather"] = g.shape[0] == n * (n + 1) // 2
+    h = hvd.allreduce_async(torch.ones(3 + rank, device="cuda"), name="mm")
+    try:
+        hvd.synchronize(h)
+        out["mismatch"] = ""
+    except ValueError as e:
+        out["mismatch"] = str(e)
+    y = torch.full((4,), float(rank), device="cuda")
+    hvd.synchronize(hvd.broadcast_async_(y, 1, name="bc"))
+    out["broadcast"] = torch.equal(y, torch.ones(4, device="cuda"))
+    out["stats"] = hvd.negotiation_stats()
+    hvd.shutdown()
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+""")
+
+
+def test_frontend_handles_across_gpus(cuda, tmp_path):
+    """The frontend over NCCL on 2 GPUs: named all-reduces submitted in
+    opposite orders pair by name, an uneven allgather, an in-place
+    broadcast, and a name whose shape differs between the ranks raises on
+    both without a hang."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    ranks = [json.loads(str(r["result"])) for r in run_world(
+        str(tmp_path), 2, "cuda", "frontend", _FRONTEND_WORKER)]
+    for r in ranks:
+        assert r["opposite"] and r["allgather"] and r["broadcast"], r
+        assert "mismatched allreduce for name 'mm'" in r["mismatch"]
+        assert r["stats"]["ops"] >= 4
+
+
+_WATCHDOG_WORKER = textwrap.dedent("""
+    import json
+    import os
+    import sys
+    import time
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import watchdog
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.train import create_train_state, make_train_step
+
+    out_dir, _, name = sys.argv[1:4]
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    model = torch.nn.Linear(64, 64, device="cuda")
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.01))
+    step = make_train_step(model, opt, lambda y, t: (y - t).square().mean())
+    state = create_train_state(model, opt)
+    x = torch.randn(8, 64, device="cuda")
+    state, _ = step(state, x, x)
+    torch.cuda.synchronize()
+    out = {}
+    if rank == 1:
+        time.sleep(7.0)
+    else:
+        t0 = time.monotonic()
+        try:
+            step(state, x, x)
+            out["raised"] = False
+        except HorovodInternalError:
+            out["raised"] = True
+        out["seconds"] = time.monotonic() - t0
+        out["aborted"] = bool(watchdog.monitor().aborted)
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+    os._exit(0)
+""")
+
+
+def test_watchdog_rescues_a_hung_nccl_step_across_gpus(cuda, tmp_path):
+    """With ``HOROVOD_STEP_TIMEOUT_SECONDS=3`` and rank 1 holding back its
+    second step, rank 0's monitored step raises ``HorovodInternalError``
+    within the deadline plus 2 s and aborts the NCCL communicators."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    ranks = [json.loads(str(r["result"])) for r in run_world(
+        str(tmp_path), 2, "cuda", "watchdog", _WATCHDOG_WORKER,
+        env={"HOROVOD_STEP_TIMEOUT_SECONDS": "3"})]
+    r0 = ranks[0]
+    assert r0["raised"] and r0["aborted"] and r0["seconds"] <= 5.0, r0

@@ -50,7 +50,11 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    "models/mixtral.py", "optimizer/moe_opt.py",
                    "parallel/sharding.py", "parallel/pipeline.py",
                    "convert.py", "train/losses.py", "models/dlrm.py",
-                   "parallel/embedding.py", "optimizer/adagrad.py"):
+                   "parallel/embedding.py", "optimizer/adagrad.py",
+                   "core/logging.py", "core/telemetry.py", "core/sentinel.py",
+                   "core/watchdog.py", "tools/autotune.py",
+                   "frontend/__init__.py", "frontend/mpi_ops.py",
+                   "frontend/functions.py", "frontend/optimizer.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -93,10 +97,14 @@ def test_build_takes_each_kernel_source_and_entry_point_once():
 
 
 def test_init_without_cuda_raises(monkeypatch):
+    from horovod_tpu_torch import frontend
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         thvd.init()
     assert not thvd.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontend.init()
+    assert not frontend.is_initialized() and not thvd.is_initialized()
 
 
 def test_cpu_world_of_one_answers_like_the_reference():
@@ -236,6 +244,14 @@ def test_models_default_to_the_card(make):
 #: port, each with the ROADMAP.md text that accounts for it.
 UNPORTED = {"eager": "`collectives/eager.py` has its counterpart in "
                      "`ops.py`"}
+#: Names of the reference's torch frontend (``horovod_tpu/torch``) with no
+#: counterpart in ``horovod_tpu_torch.frontend``, with their ROADMAP.md text.
+_ENGINES = ("The reference frontend's engine classes (`CollectiveEngine`, "
+            "`SingleProcessEngine`, `ThreadSimEngine`, `JaxProcessEngine`) "
+            "have no counterpart")
+UNPORTED_FRONTEND = dict.fromkeys(
+    ("CollectiveEngine", "SingleProcessEngine", "ThreadSimEngine",
+     "JaxProcessEngine"), _ENGINES)
 
 
 def _reference_collective_names():
@@ -254,12 +270,29 @@ def _reference_collective_names():
     return names, top
 
 
+def _reference_frontend_names():
+    """The public names of ``horovod_tpu/torch/__init__.py``: those it
+    imports and those it defines, read from the source (no jax import)."""
+    tree = ast.parse((REPO / "horovod_tpu" / "torch" /
+                      "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.FunctionDef):
+            names.add(node.name)
+    return {n for n in names if not n.startswith("_")}
+
+
 def test_every_reference_collective_has_a_counterpart_or_a_roadmap_entry():
     """Each name exported by ``horovod_tpu.collectives``, and each name the
     JAX package's top level takes from it, is exported by the port at the
-    same place, or accounted for in ROADMAP.md: a later slice cannot drop
-    one silently."""
+    same place, and each public name of the reference's torch frontend
+    (``horovod_tpu/torch/__init__.py``) by ``horovod_tpu_torch.frontend``,
+    or accounted for in ROADMAP.md: a later slice cannot drop one
+    silently."""
     import horovod_tpu_torch.collectives as tcol
+    from horovod_tpu_torch import frontend
     names, top = _reference_collective_names()
     assert len(names) > 25 and top <= names | {"eager"}
     roadmap = (REPO / "ROADMAP.md").read_text()
@@ -273,7 +306,28 @@ def test_every_reference_collective_has_a_counterpart_or_a_roadmap_entry():
     for name in sorted(top - set(UNPORTED)):
         if getattr(thvd, name, None) is not getattr(tcol, name, None):
             missing.append(name)
+    ref = _reference_frontend_names()
+    assert len(ref) > 60
+    for name in sorted(ref):
+        if name in UNPORTED_FRONTEND:
+            assert UNPORTED_FRONTEND[name] in " ".join(roadmap.split()), name
+        elif getattr(frontend, name, None) is None:
+            missing.append(f"frontend.{name}")
     assert missing == []
+
+
+def test_frontend_build_probes_say_what_is_true():
+    """The frontend's build probes answer for the installed torch, not the
+    reference's "nothing is built" (its numpy engines)."""
+    from horovod_tpu_torch import frontend
+    assert frontend.nccl_built() == torch.distributed.is_nccl_available()
+    assert frontend.cuda_built() == (torch.version.cuda is not None)
+    assert frontend.gloo_enabled() == torch.distributed.is_gloo_available()
+    assert frontend.rocm_built() == (torch.version.hip is not None)
+    assert not (frontend.mpi_built() or frontend.mpi_enabled()
+                or frontend.ddl_built() or frontend.ccl_built())
+    # The top level keeps its own signatures (positional op).
+    assert thvd.allreduce is not frontend.allreduce
 
 
 def test_hierarchical_flag_in_a_world_of_one_issues_no_collective(
