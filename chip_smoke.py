@@ -4,15 +4,16 @@ and of its Adasum, hierarchical, collective, context-parallel,
 expert-parallel, model-parallel (Llama, Mixtral, BERT), pipeline and DLRM
 paths across up to four cards where the machine has them, then of its
 torch frontend and the step's guards (sentinel, watchdog, ``scan_steps``,
-autotuner).
+autotuner), and of its serving plane (the paged-KV decode engine and the
+inference server, on one card and over tp 4).
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the script exits nonzero.
-They run in this order: 1 and 2; the one-card phases (5-12, 14, 16, 21) on
-card 0; then the multi-card phases (3, 4, 13, 15, 17-20, 22) and the
-phases of the frontend and the guards (23-25), each printing its seconds,
-and the whole script's. On four cards or more, the 2-rank worlds
+They run in this order: 1 and 2; the one-card phases (5-12, 14, 16, 21, 26)
+on card 0; then the multi-card phases (3, 4, 13, 15, 17-20, 22), the
+phases of the frontend and the guards (23-25) and serving over tp (27),
+each printing its seconds, and the whole script's. On four cards or more, the 2-rank worlds
 of phases 18 and 19 run on cards 2 and 3 beside the one-card phases
 (``LANE_PHASES``), and phases 13, 15 and 17 start their 4-rank world alone:
 it splits every axis their 2-rank world splits (``FOUR_ALONE``).
@@ -362,6 +363,55 @@ it splits every axis their 2-rank world splits (``FOUR_ALONE``).
    with exit code 73; on four cards it runs on cards 2 and 3 beside the
    first.
 
+26. serve — ``llama3_8b()`` at its full 32 layers, bf16, seeded weights
+   made on the card: the port's ``Llama``, then ``export_decode_params``
+   (the matrices cast to bf16 once). The decode engine: 8 slots, blocks of
+   16, 128 blocks a slot (a context of 2048), 1025 pool blocks, prefill
+   buckets (128, 512, 1024), 64 new tokens a request, 16 seeded prompts of
+   20 to 1000 tokens. Gates: the prefill logits of a 1000-token prompt
+   within 2^-4 normwise of ``Llama.forward`` (which runs B1) at the same
+   weights; teacher-forced decode logits at positions 27-34 (a block
+   boundary at 32, 1 of 8 slots active) within 2^-4 of the forward
+   (``SERVE_NORMWISE`` says why); every generated token of the 16 streams
+   equal to the forward's argmax on the stream's own prefix, but at near
+   ties (the forward's top-2 margin there at most 2^-2 of the RMS of its
+   logits row: ``SERVE_TIE``); the same
+   requests through ``InferenceServer``'s ``/generate`` over loopback HTTP,
+   all at once, giving the engine's tokens exactly; speculative K = 4 (the
+   n-gram drafter) against K = 0, and a refill of the same weights at tick
+   10 of 8 requests against no swap (each pair may part only at a near tie
+   of the forward's logits); a drain to other weights (the LM head's rows
+   rolled by one) at tick 10, the in-flight requests finishing on the old
+   weights bit for bit and the next request served by the new ones; the
+   null block all zero; ``compile_counts`` one decode shape, a prefill
+   shape a bucket used, no ``verify`` key at K = 0. Prints the prefill's
+   wall and the time to the first token per bucket; the decode step at 8
+   active slots (median of 30 after 3 warm, each tick ended by a wait for
+   the card), tokens/s and ms per output token; its bytes bound (every
+   matrix once, the live KV rows read, at 3.35 TB/s) and the share of it;
+   the KV pool's bytes and the peak memory; the speculative acceptance
+   rate; and one profiled decode tick: its kernel launches and
+   ``device_breakdown`` with the idle share.
+27. serve-tp — a tp world of 4 ranks alone (on fewer cards it prints that
+   and runs nothing), the engine of phase 26 on every rank, 8 of its
+   prompts. (a) ``llama3_8b()`` at 32 layers: each rank exports its shard
+   from the model built on the mesh (the vocabulary's split gathered),
+   and rank 0 also holds the whole model: rank 0's shard equal to its
+   block of the whole export bit for bit; teacher-forced logits (prefill,
+   and decode at 27-34) within 2^-4 normwise of the whole model on one
+   card; every rank's streams identical, and parting from the whole
+   model's only at near ties of its logits; a decode step handing exactly
+   2 x 32 all-reduces to ``torch.distributed`` and nothing else (every
+   collective entry point counted). (b) ``mixtral_8x7b()`` at 2 layers,
+   capacity factor 4.0 (no drops), against the whole model on rank 0's
+   card: the same logits and stream gates, and the router choices that
+   part from the whole model's counted. (c) ``mixtral_8x7b()`` at its
+   full 32 layers, each rank building its shard on its card from the
+   seed: streams identical on every rank, a decode step's logits finite
+   and 2 x 32 all-reduces and nothing else. Prints the decode step and
+   tokens/s of each (and of the whole Llama on one card) and the peak
+   memory a rank.
+
 After phase 5, B1, B2 and B3 are also held and timed at the tp-local head
 counts of the main shape (16 heads at tp 2, 8 at tp 4: ``tp-kernels``).
 
@@ -381,8 +431,11 @@ second step on ``{"fsdp": 2, "ep": 2}`` at 6 layers; on 2 cards its parity
 steps), ``bert-mp`` (phase 20, rank 0's second step of its first
 24-layer run), ``dlrm`` (phase 21, its sparse steps), ``dlrm-mp`` (phase
 22, rank 0's steps on its first mesh), ``frontend`` and ``watchdog``
-(phases 23 and 25: no kernel runs on them) and ``guards`` (phase 24, rank
-0's clean steps with the sentinel on).
+(phases 23 and 25: no kernel runs on them), ``guards`` (phase 24, rank
+0's clean steps with the sentinel on), ``serve`` (phase 26, the 16
+requests through the engine called directly) and ``serve-tp`` (phase 27,
+rank 0's tp engine run of Llama-3-8B); no kernel runs on the two serve
+paths.
 
 Tolerances are per element: ``|kernel - plain| <= r * (|plain| + RMS)``,
 with RMS that of the compared plain tensor. Both sides sum in f32, in
@@ -4862,6 +4915,778 @@ def watchdog_phase(torch, card):
     return zeros
 
 
+# ------------------------------------------------------------------ serving
+
+SERVE_SLOTS = 8
+SERVE_BS = 16
+SERVE_MAX_BLOCKS = 128                           # a context of 2048
+SERVE_POOL = 1 + SERVE_SLOTS * SERVE_MAX_BLOCKS  # the null block and 8 slots
+SERVE_BUCKETS = (128, 512, 1024)
+SERVE_MAX_NEW = 64
+SERVE_REQUESTS = 16
+SERVE_TP_REQUESTS = 8
+SERVE_TIMED = 30
+SERVE_WARM = 3
+SERVE_SPEC_K = 4
+#: The decode path's logits against the reference's, normwise. Both
+#: compute in bf16 and round apart (the materialised softmax against B1,
+#: one row against a prompt's worth, bf16 partial sums under tp): a
+#: rounding moves a value by up to 2^-9, the two paths take some ten
+#: roundings a layer apart, and over 32 layers such errors add to about
+#: sqrt(320) x 2^-9 = 0.035 of the logits' norm; 2^-4 leaves less than a
+#: factor two over that.
+SERVE_NORMWISE = 2 ** -4
+#: A flip (two streams, or a stream and the reference's argmax, choosing
+#: apart) passes only at a near tie: the reference logits' top-2 margin
+#: there at most ``SERVE_TIE`` times the RMS of their row. With the
+#: logits within ``SERVE_NORMWISE`` normwise, the two tokens' errors of up
+#: to twice the row's RMS error each move their difference by up to four
+#: times ``SERVE_NORMWISE``.
+SERVE_TIE = 4 * SERVE_NORMWISE
+#: Mixtral-8x7B's parity cell over tp: its depth (the full model does not
+#: fit one card beside the shards).
+SERVE_MIXTRAL_PARITY_LAYERS = 2
+#: The decode engine of both serve phases.
+SERVE_ENGINE = dict(slots=SERVE_SLOTS, block_size=SERVE_BS,
+                    pool_blocks=SERVE_POOL,
+                    max_blocks_per_slot=SERVE_MAX_BLOCKS,
+                    prefill_buckets=SERVE_BUCKETS)
+
+
+def serve_prompts(torch, vocab, n, seed=0):
+    """``n`` seeded prompts of 20 to 1000 tokens (the last two buckets'
+    edges included), made on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = [1000, 20] + torch.randint(
+        20, 1001, (n - 2,), generator=gen).tolist()
+    return [torch.randint(0, vocab, (t,), generator=gen).tolist()
+            for t in lengths]
+
+
+def normwise(a, ref):
+    return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def top2_margin(row):
+    """The top-2 margin of a logits row over its RMS."""
+    top = row.float().topk(2).values
+    return ((top[0] - top[1]) / row.float().square().mean().sqrt()).item()
+
+
+def near_tie_flips(what, streams, others, ref_logits):
+    """Hold stream pairs to the near-tie rule: for each pair the first
+    position where they differ must be one where the reference's logits
+    (``ref_logits(prefix)`` -> the row after ``prefix``) have a top-2 margin
+    of at most ``SERVE_TIE`` RMS. Returns the margins of the flips."""
+    flips = []
+    for a, b in zip(streams, others):
+        if a == b:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin = top2_margin(ref_logits(a[:i]))
+        if margin > SERVE_TIE:
+            raise AssertionError(f"{what}: streams part at position {i} "
+                                 f"({a[i]} vs {b[i]}) where the reference's "
+                                 f"top-2 margin is {margin:.4f} RMS, past "
+                                 f"the near-tie bound {SERVE_TIE}")
+        flips.append(round(margin, 5))
+    return flips
+
+
+def teacher_forced_flips(what, stream, prompt_len, ref_rows):
+    """Every generated token of ``stream`` against the reference's argmax
+    on the stream's own prefix (``ref_rows [len - 1, V]``, row t the logits
+    after token t); a mismatch must be a near tie. Returns the margins of
+    the mismatches."""
+    flips = []
+    want = ref_rows[prompt_len - 1:].argmax(-1).tolist()
+    for j, (w, g) in enumerate(zip(want, stream[prompt_len:])):
+        if w != g:
+            margin = top2_margin(ref_rows[prompt_len - 1 + j])
+            if margin > SERVE_TIE:
+                raise AssertionError(
+                    f"{what}: token {prompt_len + j} is {g}, the reference's "
+                    f"argmax {w}, at a top-2 margin of {margin:.4f} RMS, "
+                    f"past the near-tie bound {SERVE_TIE}")
+            flips.append(round(margin, 5))
+    return flips
+
+
+def decode_bytes(params, cfg, positions, slots):
+    """The bytes a decode step must move: every matrix once (the
+    embedding's ``slots`` rows), the KV rows of positions ``0..pos`` of each
+    active slot read and the new one written, K and V, and the f32 logits
+    written."""
+    hd = cfg.dim // cfg.n_heads
+    w = sum(v.numel() * v.element_size() for k, v in params.items()
+            if k != "embedding")
+    w += slots * cfg.dim * params["embedding"].element_size()
+    row = cfg.n_layers * 2 * cfg.n_kv_heads * hd * 2   # K and V, bf16
+    kv = sum(p + 1 for p in positions) * row + len(positions) * row
+    return w + kv + slots * cfg.vocab_size * 4
+
+
+def kernel_launches(prof):
+    """The kernels a profile saw launched on the card."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def run_engine(torch, eng, prompts, max_new, *, timed=None, profile_at=None,
+               hook=None):
+    """Submit ``prompts`` (rank 0 of a tp group alone) and drive ``eng``
+    to the end, one tick at a time, each ended by a wait for the card. ``timed`` collects (seconds, active
+    positions) of the ticks that only decoded with every slot active;
+    ``profile_at`` profiles that tick (returns its profile and seconds);
+    ``hook(tick)`` runs before each tick. Returns the requests."""
+    reqs = ([eng.submit(p, max_new) for p in prompts] if eng.is_leader
+            else [])
+    prof = None
+    for tick in range(100_000):
+        if hook is not None:
+            hook(tick)
+        eng._sync()     # under tp: rank 0's new requests reach every rank
+        if not eng.has_work():
+            break
+        free = eng.allocator.free_blocks
+        active = eng.active_slots
+        torch.cuda.synchronize()
+        ctx = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if tick == profile_at else contextlib.nullcontext())
+        with ctx as p:
+            t = time.perf_counter()
+            eng._tick()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        if tick == profile_at:
+            prof = (p, dt)
+        steady = (active == eng.active_slots == eng.n_slots
+                  and free == eng.allocator.free_blocks)
+        if timed is not None and steady:
+            timed.append((dt, [s.pos for s in eng.slots]))
+    for r in reqs:
+        if r.error is not None or r.tokens is None:
+            raise AssertionError(f"a request failed: {r.error}")
+    return reqs, prof
+
+
+def serve_phase(torch, card):
+    """The ``serve`` phase (module doc). Returns the launches of B1-B5 on
+    the decode path (none of them runs on it)."""
+    import urllib.request
+    from horovod_tpu_torch.core import telemetry
+    from horovod_tpu_torch.models import decode as MD
+    from horovod_tpu_torch.models.llama import Llama, llama3_8b
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.serving import (DecodeEngine, InferenceServer,
+                                           ModelRegistry, ServedModel)
+    from horovod_tpu_torch.train.step_builder import export_decode_params
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(llama3_8b(), use_flash=True, remat=False)
+    model = Llama(cfg, device="cuda", seed=0)
+    params = export_decode_params(model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    what = (f"serve, llama3_8b() at {cfg.n_layers} layers, bf16, seeded "
+            f"weights, {SERVE_SLOTS} slots of {SERVE_MAX_BLOCKS} blocks of "
+            f"{SERVE_BS}, {SERVE_POOL} pool blocks, buckets {SERVE_BUCKETS}")
+    vocab = cfg.vocab_size
+
+    @torch.no_grad()
+    def forward(seq):
+        return model(torch.tensor([seq], device="cuda"))[0]
+
+    # (a) prefill logits against Llama.forward (B1) at the same weights
+    prompts = serve_prompts(torch, vocab, SERVE_REQUESTS)
+    scratch = MD.init_kv_pools(cfg, 80, SERVE_BS)
+    prefill = MD.make_prefill(cfg, SERVE_BS)
+    decode = MD.make_decode_step(cfg, SERVE_BS)
+    p0 = prompts[0]
+    padded = torch.zeros((1, 1024), dtype=torch.long, device="cuda")
+    padded[0, :len(p0)] = torch.tensor(p0)
+    logits, *_ = prefill(params, *scratch, padded,
+                         torch.arange(1, 65, device="cuda"))
+    pre_gap = normwise(logits[0, :len(p0)], forward(p0))
+    del logits
+    # (b) teacher-forced decode at positions 27..34, across the block
+    # boundary at 32, slot 0 of 8 active
+    gen = torch.Generator().manual_seed(1)
+    seq = torch.randint(0, vocab, (35,), generator=gen).tolist()
+    ref = forward(seq)
+    _, rows, null = teacher_forced(torch, prefill, decode, params, cfg, seq)
+    tf_gaps = [normwise(a, b) for a, b in zip(rows, ref[27:35])]
+    if not null:
+        raise AssertionError(f"{what}: the null block took a write")
+    worst_tf = max(tf_gaps)
+    if pre_gap > SERVE_NORMWISE or worst_tf > SERVE_NORMWISE:
+        raise AssertionError(f"{what}: prefill logits {pre_gap:.2e} and "
+                             f"teacher-forced decode logits {tf_gaps} "
+                             f"normwise from Llama.forward, past "
+                             f"{SERVE_NORMWISE}")
+    del scratch, ref
+    log("serve", f"{what}: built and exported in {build_s:.1f} s; prefill "
+                 f"logits ({len(p0)} tokens, bucket 1024) within "
+                 f"{pre_gap:.2e} normwise of Llama.forward (B1); "
+                 f"teacher-forced decode logits at positions 27-34 (a block "
+                 f"boundary at 32, 1 of {SERVE_SLOTS} slots active) within "
+                 f"{worst_tf:.2e} (gate {SERVE_NORMWISE:.2e}); the null "
+                 f"block stayed zero; on {card}")
+
+    # (c) the engine called directly: the main path. Every request's
+    # stream against the reference's argmax on the stream's own prefix.
+    engine = lambda **kw: DecodeEngine(cfg, params=params, device="cuda",  # noqa: E731
+                                       **dict(SERVE_ENGINE, **kw))
+    eng = engine()
+    fa.reset_launch_counts()
+    fused.reset_launch_counts()
+    timed = []
+    profile_tick = 1 + SERVE_WARM + SERVE_TIMED + 2
+    t0 = time.perf_counter()
+    reqs, (prof, prof_s) = run_engine(torch, eng, prompts, SERVE_MAX_NEW,
+                                      timed=timed, profile_at=profile_tick)
+    run_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fa.KERNELS.items()}
+    launches.update({k: f.launches for k, f in fused.KERNELS.items()})
+    plain = [r.tokens for r in reqs]
+    flips = []
+    for p, s in zip(prompts, plain):
+        rows = forward(s[:-1])
+        flips += teacher_forced_flips(f"{what}: greedy", s, len(p), rows)
+        del rows
+    counts = dict(eng.compile_counts)
+    if counts["decode"] != 1 or "verify" in counts \
+            or not 1 <= counts["prefill"] <= len(SERVE_BUCKETS):
+        raise AssertionError(f"{what}: compile_counts {counts}")
+    if not eng._kp[:, 0].eq(0).all() or not eng._vp[:, 0].eq(0).all():
+        raise AssertionError(f"{what}: the null block took a write")
+    if eng.allocator.free_blocks != SERVE_POOL - 1:
+        raise AssertionError(f"{what}: blocks leaked")
+    pool_gb = 2 * eng._kp.numel() * eng._kp.element_size() / 1e9
+    del eng
+    buckets = {}
+    for r in reqs:
+        b = next(b for b in SERVE_BUCKETS if len(r.prompt) <= b)
+        buckets.setdefault(b, []).append(r)
+    ttft = "; ".join(
+        f"bucket {b}: {len(rs)} requests, prefill wall median "
+        f"{_median([r.prefill_wall_s for r in rs]) * 1e3:.1f} ms, time to "
+        f"the first token median {_median([r.ttft_s for r in rs]) * 1e3:.1f}"
+        f" ms" for b, rs in sorted(buckets.items()))
+    log("serve", f"{what}: {SERVE_REQUESTS} requests of "
+                 f"{min(map(len, prompts))}-{max(map(len, prompts))} "
+                 f"tokens, {SERVE_MAX_NEW} new each, through the engine in "
+                 f"{run_s:.1f} s: every token the reference's argmax on its "
+                 f"own prefix but {len(flips)} near ties (top-2 margins "
+                 f"{flips} RMS, bound {SERVE_TIE}); compile_counts "
+                 f"{counts}; B1-B5 launched {launches}; on {card}")
+    log("serve", f"{what}: time to the first token (one prefill at a time, "
+                 f"the first wave queued behind the others): {ttft}; on "
+                 f"{card}")
+    steps = [dt for dt, _ in timed][SERVE_WARM:SERVE_WARM + SERVE_TIMED]
+    if len(steps) < SERVE_TIMED:
+        raise AssertionError(f"{what}: only {len(steps)} timed steps")
+    step_s = _median(steps)
+    pos_mid = timed[SERVE_WARM + SERVE_TIMED // 2][1]
+    bound_s = decode_bytes(params, cfg, pos_mid, SERVE_SLOTS) / \
+        H100_BYTES_PER_S
+    log("serve", f"{what}: decode step at {SERVE_SLOTS} active slots "
+                 f"(positions {min(pos_mid)}-{max(pos_mid)} mid-way), "
+                 f"{SERVE_TIMED} after {SERVE_WARM} warm, each ended by a "
+                 f"wait for the card: {_spread(steps)}; "
+                 f"{SERVE_SLOTS / step_s:.1f} tokens/s, {step_s * 1e3:.2f} "
+                 f"ms per output token of each stream; the bytes bound "
+                 f"{bound_s * 1e3:.3f} ms (weights and the KV rows read at "
+                 f"{H100_BYTES_PER_S / 1e12:.2f} TB/s), {bound_s / step_s:.1%}"
+                 f" of it; KV pool {pool_gb:.2f} GB; peak "
+                 f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; on "
+                 f"{card}")
+    n_kernels = kernel_launches(prof)
+    log("serve", f"decode tick {profile_tick} under torch.profiler, "
+                 f"{prof_s * 1e3:.1f} ms on the host clock, {n_kernels} "
+                 f"kernel launches: {device_breakdown(prof, prof_s)}")
+    del prof
+
+    # (d) the same requests through InferenceServer's /generate over HTTP
+    registry = ModelRegistry()
+    registry._current = ServedModel(params, {"time": time.time()}, 0, "",
+                                    time.time())
+    srv = InferenceServer(registry, lambda p, i, n: [], window_s=0.0,
+                          request_timeout_s=600.0,
+                          decode_engine=engine())
+    got = [None] * len(prompts)
+
+    def post(i):
+        body = json.dumps({"tokens": prompts[i],
+                           "max_new": SERVE_MAX_NEW}).encode()
+        req = urllib.request.Request(
+            f"http://{srv.addr()}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got[i] = json.loads(r.read())
+
+    import threading
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    http_s = time.perf_counter() - t0
+    srv.close()
+    del srv
+    http = [g["tokens"] if g and g.get("ok") else g for g in got]
+    if http != plain:
+        raise AssertionError(f"{what}: /generate's tokens differ from the "
+                             f"engine's called directly")
+    log("serve", f"{what}: the {SERVE_REQUESTS} requests through "
+                 f"InferenceServer's /generate over loopback HTTP, all at "
+                 f"once: the engine's tokens exactly; {http_s:.1f} s; on "
+                 f"{card}")
+
+    def ref_after(prefix):
+        return forward(prefix)[-1]
+
+    # (e) speculative K = 4 against K = 0
+    tel = telemetry.active().registry
+    hits0 = tel.counter_value("hvd_serving_spec_draft_hits_total")
+    offered0 = tel.counter_value("hvd_serving_spec_draft_tokens_total")
+    eng = engine(spec_k=SERVE_SPEC_K)
+    t0 = time.perf_counter()
+    spec_reqs, _ = run_engine(torch, eng, prompts, SERVE_MAX_NEW)
+    spec_s = time.perf_counter() - t0
+    spec_counts = dict(eng.compile_counts)
+    del eng
+    hits = tel.counter_value("hvd_serving_spec_draft_hits_total") - hits0
+    offered = tel.counter_value(
+        "hvd_serving_spec_draft_tokens_total") - offered0
+    spec_flips = near_tie_flips(f"{what}: spec K={SERVE_SPEC_K}",
+                                [r.tokens for r in spec_reqs], plain,
+                                ref_after)
+    if spec_counts != {"decode": 0, "prefill": spec_counts["prefill"],
+                       "verify": 1}:
+        raise AssertionError(f"{what}: spec compile_counts {spec_counts}")
+    log("serve", f"{what}: speculative K={SERVE_SPEC_K} (n-gram drafter) "
+                 f"against K=0: {len(spec_flips)} streams part at near ties "
+                 f"(margins {spec_flips} RMS), the rest equal; drafts "
+                 f"accepted {hits:.0f} of {offered:.0f} "
+                 f"({hits / max(offered, 1):.1%}); {spec_s:.1f} s against "
+                 f"{run_s:.1f} s plain; on {card}")
+
+    # (f) a refill of the same weights mid-decode; (g) a drain to other
+    # weights (the LM head's rows rolled by one: every argmax moves by one)
+    half = prompts[:SERVE_SLOTS]
+    eng = engine()
+    refill_reqs, _ = run_engine(
+        torch, eng, half, SERVE_MAX_NEW,
+        hook=lambda tick: tick == 10 and eng.install_params(params))
+    refill_flips = near_tie_flips(f"{what}: refill",
+                                  [r.tokens for r in refill_reqs],
+                                  plain[:SERVE_SLOTS], ref_after)
+    if any(r.model_seq != 1 or r.truncated for r in refill_reqs):
+        raise AssertionError(f"{what}: the refill did not take")
+    del eng
+    rolled = dict(params, **{"lm_head.weight": params["lm_head.weight"]
+                             .roll(1, 0)})
+    eng = engine(swap_policy="drain")
+    drain_reqs, _ = run_engine(
+        torch, eng, half, SERVE_MAX_NEW,
+        hook=lambda tick: tick == 10 and eng.install_params(rolled))
+    after, _ = run_engine(torch, eng, half[:1], 4)
+    if [r.tokens for r in drain_reqs] != plain[:SERVE_SLOTS]:
+        raise AssertionError(f"{what}: the drained requests did not finish "
+                             f"on the old weights bit for bit")
+    first = plain[0][len(half[0])]
+    if after[0].model_seq != 1 or \
+            after[0].tokens[len(half[0])] != (first + 1) % vocab:
+        raise AssertionError(f"{what}: the request after the drain was not "
+                             f"served by the new weights")
+    if not eng._kp[:, 0].eq(0).all() or not eng._vp[:, 0].eq(0).all():
+        raise AssertionError(f"{what}: the null block took a write")
+    del eng, rolled
+    log("serve", f"{what}: refill of the same weights at tick 10 of "
+                 f"{SERVE_SLOTS} requests: {len(refill_flips)} streams part "
+                 f"at near ties (margins {refill_flips} RMS), the rest equal"
+                 f" the unswapped streams; drain to other weights at tick "
+                 f"10: the in-flight requests finish on the old weights bit "
+                 f"for bit, the next request is served by the new ones; the "
+                 f"null block zero at the end; phase "
+                 f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def teacher_forced(torch, prefill, decode, params, cfg, seq, tp=1):
+    """The prefill logits of ``seq[:27]`` (bucket 128) and the decode
+    logits at positions 27..34 fed ``seq``'s tokens (a block boundary at
+    32), slot 0 of ``SERVE_SLOTS`` active, in scratch pools of this rank's
+    heads. Returns (prefill rows [27, V], decode rows [8, V], null block
+    zero)."""
+    from horovod_tpu_torch.models import decode as MD
+    pools = MD.init_kv_pools(cfg, 10, SERVE_BS, tp=tp)
+    padded = torch.zeros((1, 128), dtype=torch.long, device="cuda")
+    padded[0, :27] = torch.tensor(seq[:27])
+    logits, *_ = prefill(params, *pools, padded,
+                         torch.arange(1, 9, device="cuda"))
+    tables = torch.zeros((SERVE_SLOTS, SERVE_MAX_BLOCKS), dtype=torch.long,
+                         device="cuda")
+    tables[0, :8] = torch.arange(1, 9)
+    active = torch.zeros(SERVE_SLOTS, dtype=torch.bool, device="cuda")
+    active[0] = True
+    rows = []
+    for pos in range(27, 35):
+        toks = torch.zeros(SERVE_SLOTS, dtype=torch.long, device="cuda")
+        toks[0] = seq[pos]
+        poss = torch.zeros(SERVE_SLOTS, dtype=torch.long, device="cuda")
+        poss[0] = pos
+        lg, *_ = decode(params, *pools, toks, poss, tables, active)
+        rows.append(lg[0])
+    null = bool(pools[0][:, 0].eq(0).all() and pools[1][:, 0].eq(0).all())
+    return logits[0, :27], torch.stack(rows), null
+
+
+def prefill_after(torch, cfg, params):
+    """``ref(prefix)``: the logits row after ``prefix`` from the one-card
+    prefill over ``params`` (the whole model), in scratch pools."""
+    from horovod_tpu_torch.models import decode as MD
+    prefill = MD.make_prefill(cfg, SERVE_BS)
+
+    def ref(prefix):
+        T = -(-len(prefix) // SERVE_BS) * SERVE_BS
+        pools = MD.init_kv_pools(cfg, T // SERVE_BS + 1, SERVE_BS)
+        padded = torch.zeros((1, T), dtype=torch.long, device="cuda")
+        padded[0, :len(prefix)] = torch.tensor(prefix)
+        logits, *_ = prefill(params, *pools, padded,
+                             torch.arange(1, T // SERVE_BS + 1,
+                                          device="cuda"))
+        return logits[0, len(prefix) - 1]
+    return ref
+
+
+def export_streaming(make, cfg):
+    """``export_decode_params`` of the model ``make()`` builds, one tensor
+    at a time, each f32 parameter freed once exported: the peak is the f32
+    model, not the model and its bf16 export beside it (Mixtral-8x7B's tp
+    shard is 47 GB in f32). Collective on a mesh, as the export is."""
+    from horovod_tpu_torch.train.step_builder import export_decode_params
+    named = dict(make().named_parameters())
+    gc.collect()
+    out = {}
+    for key in list(named):
+        out.update(export_decode_params({key: named.pop(key)}, cfg))
+    return out
+
+
+#: Every collective entry point of torch.distributed that a decode step
+#: could reach; the serve-tp worker counts calls to each.
+DIST_COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+                    "all_gather_into_tensor", "reduce_scatter_tensor",
+                    "reduce_scatter", "all_to_all", "all_to_all_single",
+                    "broadcast_object_list", "all_gather_object", "send",
+                    "recv", "isend", "irecv", "barrier", "gather", "scatter",
+                    "reduce", "batch_isend_irecv")
+
+
+def serve_tp_worker(out_dir):
+    """One rank of the ``serve-tp`` world (module doc)."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import decode as MD
+    from horovod_tpu_torch.models.llama import Llama, llama3_8b
+    from horovod_tpu_torch.models.mixtral import Mixtral, mixtral_8x7b
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.serving import DecodeEngine
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    mesh = create_mesh({"tp": n})
+    calls = {}
+    for name in DIST_COLLECTIVES:
+        real = getattr(dist, name)
+
+        def counting(*a, _name=name, _real=real, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        setattr(dist, name, counting)
+    out = {"rank": rank}
+
+    def engine(cfg, params, tp=True, **kw):
+        eng = DecodeEngine(cfg, params=params, device="cuda",
+                           mesh=mesh if tp else None,
+                           **dict(SERVE_ENGINE, **kw))
+        eng.retired = []
+        real = eng._retire
+
+        def retire(idx, truncated=False):
+            req = eng.slots[idx].req
+            real(idx, truncated)
+            eng.retired.append(req.tokens)
+        eng._retire = retire
+        return eng
+
+    def step_wire(eng):
+        """Collectives of one decode step called directly (all 8 slots as
+        the engine left them, masked), and its logits finite."""
+        calls.clear()
+        lg, *_ = eng._decode(eng._params, eng._kp, eng._vp,
+                             eng._dev_tokens, eng._owned(eng._positions),
+                             eng._tables_device(),
+                             eng._runnable_device(eng._runnable()))
+        wire = dict(calls)
+        return wire, bool(torch.isfinite(lg).all())
+
+    def timed_run(eng, prompts, max_new):
+        """Run ``prompts``; each rank's streams in the prompts' order."""
+        timed = []
+        t0 = time.perf_counter()
+        run_engine(torch, eng, prompts, max_new, timed=timed)
+        steps = [dt for dt, _ in timed][SERVE_WARM:SERVE_WARM + SERVE_TIMED]
+        streams = [next(s for s in eng.retired if s[:len(p)] == p)
+                   for p in prompts]
+        return {"streams": streams, "steps": steps,
+                "seconds": time.perf_counter() - t0}
+
+    def prompts_of(cfg):
+        return serve_prompts(torch, cfg.vocab_size,
+                             SERVE_REQUESTS)[:SERVE_TP_REQUESTS]
+
+    gen = torch.Generator().manual_seed(1)
+
+    # Llama-3-8B at 32 layers: rank 0 holds the whole model beside its
+    # shard; each rank's shard from the model built on the mesh (its
+    # blocks, the vocabulary's split gathered by the export)
+    cfg = dataclasses.replace(llama3_8b(), remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    whole = (export_streaming(lambda: Llama(cfg, device="cuda", seed=0), cfg)
+             if rank == 0 else None)
+    shard = export_streaming(
+        lambda: Llama(cfg, device="cuda", seed=0, mesh=mesh), cfg)
+    torch.cuda.empty_cache()
+    if rank == 0:
+        mine = MD.decode_shard(cfg, whole, n, rank)
+        out["shard_equal"] = all(torch.equal(shard[k], mine[k])
+                                 for k in whole)
+        del mine
+    seq = torch.randint(0, cfg.vocab_size, (35,), generator=gen).tolist()
+    tp_pre, tp_dec, tp_null = teacher_forced(
+        torch, MD.make_prefill_tp(cfg, SERVE_BS, mesh),
+        MD.make_decode_step_tp(cfg, SERVE_BS, mesh), shard, cfg, seq, tp=n)
+    llama = {"null": tp_null, "layers": cfg.n_layers}
+    if rank == 0:
+        w_pre, w_dec, _ = teacher_forced(
+            torch, MD.make_prefill(cfg, SERVE_BS),
+            MD.make_decode_step(cfg, SERVE_BS), whole, cfg, seq)
+        llama["prefill_gap"] = normwise(tp_pre, w_pre)
+        llama["decode_gaps"] = [normwise(a, b) for a, b in
+                                zip(tp_dec, w_dec)]
+    prompts = prompts_of(cfg)
+    eng = engine(cfg, shard)
+    fa.reset_launch_counts()
+    fused.reset_launch_counts()
+    llama.update(timed_run(eng, prompts, SERVE_MAX_NEW))
+    out["launches"] = {k: f.launches for k, f in fa.KERNELS.items()}
+    out["launches"].update({k: f.launches for k, f in fused.KERNELS.items()})
+    llama["wire"], llama["finite"] = step_wire(eng)
+    llama["counts"] = dict(eng.compile_counts)
+    eng.close()
+    del eng
+    if rank == 0:
+        ref_eng = engine(cfg, whole, tp=False)
+        llama["whole"] = timed_run(ref_eng, prompts, SERVE_MAX_NEW)
+        del ref_eng
+        llama["flips"] = near_tie_flips(
+            "serve-tp: llama3_8b tp against the whole model",
+            llama["streams"], llama["whole"]["streams"],
+            prefill_after(torch, cfg, whole))
+    llama["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["llama"] = llama
+    del whole, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # Mixtral-8x7B at 2 layers, no drops (capacity factor E / top_k):
+    # the tp shards against the whole model on rank 0's card; the routing
+    # choices of both recorded call by call
+    mcfg = dataclasses.replace(mixtral_8x7b(), remat=False,
+                               n_layers=SERVE_MIXTRAL_PARITY_LAYERS,
+                               capacity_factor=4.0)
+    choices = []
+    real_router = MD.topk_router_sorted
+
+    def recording(logits, E, capacity, k):
+        choices.append(logits.topk(k, dim=-1).indices.sort(-1).values)
+        return real_router(logits, E, capacity, k)
+    MD.topk_router_sorted = recording
+    whole = (export_streaming(lambda: Mixtral(mcfg, device="cuda", seed=0),
+                              mcfg) if rank == 0 else None)
+    shard = export_streaming(
+        lambda: Mixtral(mcfg, device="cuda", seed=0, mesh=mesh), mcfg)
+    torch.cuda.empty_cache()
+    seq = torch.randint(0, mcfg.vocab_size, (35,), generator=gen).tolist()
+    choices.clear()
+    tp_pre, tp_dec, tp_null = teacher_forced(
+        torch, MD.make_prefill_tp(mcfg, SERVE_BS, mesh),
+        MD.make_decode_step_tp(mcfg, SERVE_BS, mesh), shard, mcfg, seq,
+        tp=n)
+    tp_choices = list(choices)
+    parity = {"null": tp_null}
+    if rank == 0:
+        choices.clear()
+        w_pre, w_dec, _ = teacher_forced(
+            torch, MD.make_prefill(mcfg, SERVE_BS),
+            MD.make_decode_step(mcfg, SERVE_BS), whole, mcfg, seq)
+        parity["prefill_gap"] = normwise(tp_pre, w_pre)
+        parity["decode_gaps"] = [normwise(a, b) for a, b in
+                                 zip(tp_dec, w_dec)]
+        parity["router_flips"] = sum(
+            int((a != b).any(-1).sum()) for a, b in zip(tp_choices, choices))
+        parity["routings"] = sum(a.shape[0] for a in tp_choices)
+    MD.topk_router_sorted = real_router
+    prompts = prompts_of(mcfg)
+    eng = engine(mcfg, shard)
+    parity.update(timed_run(eng, prompts, SERVE_MAX_NEW))
+    eng.close()
+    del eng
+    if rank == 0:
+        ref_eng = engine(mcfg, whole, tp=False)
+        parity["whole"] = timed_run(ref_eng, prompts, SERVE_MAX_NEW)
+        del ref_eng
+        parity["flips"] = near_tie_flips(
+            "serve-tp: mixtral at 2 layers, tp against the whole model",
+            parity["streams"], parity["whole"]["streams"],
+            prefill_after(torch, mcfg, whole))
+    out["mixtral_parity"] = parity
+    del whole, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # Mixtral-8x7B at its full 32 layers: each rank makes its shard on its
+    # card from the seed
+    mcfg = dataclasses.replace(mixtral_8x7b(), remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shard = export_streaming(
+        lambda: Mixtral(mcfg, device="cuda", seed=0, mesh=mesh), mcfg)
+    torch.cuda.empty_cache()
+    full = {"layers": mcfg.n_layers, "build_s": time.perf_counter() - t0,
+            "shard_gb": sum(v.numel() * v.element_size()
+                            for v in shard.values()) / 1e9}
+    eng = engine(mcfg, shard)
+    full.update(timed_run(eng, prompts, SERVE_MAX_NEW))
+    full["wire"], full["finite"] = step_wire(eng)
+    full["null"] = bool(eng._kp[:, 0].eq(0).all()
+                        and eng._vp[:, 0].eq(0).all())
+    eng.close()
+    full["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mixtral"] = full
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def serve_tp_phase(torch, card):
+    """The ``serve-tp`` phase (module doc). Returns rank 0's launches of
+    B1-B5 in its tp engine run of Llama-3-8B (none of them runs there)."""
+    zeros = dict.fromkeys(("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv", "norms_dot",
+                           "combine"), 0)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log("serve-tp", f"needs four cards (a tp world of 4), this machine "
+                        f"has {cards}: nothing run; on {card}")
+        return zeros
+    env = ({"CUDA_VISIBLE_DEVICES": "0,1,2,3"} if cards > 4 else None)
+    ranks = run_world("serve-tp", 4, env, limit=900)
+    r0 = ranks[0]
+    what = "serve-tp, tp 4"
+    for key in ("llama", "mixtral_parity", "mixtral"):
+        for r in ranks:
+            if r[key]["streams"] != r0[key]["streams"]:
+                raise AssertionError(f"{what}: {key}: rank {r['rank']}'s "
+                                     f"tokens differ from rank 0's")
+            if not r[key].get("null", True):
+                raise AssertionError(f"{what}: {key}: the null block took "
+                                     f"a write on rank {r['rank']}")
+        if len(r0[key]["streams"]) != SERVE_TP_REQUESTS:
+            raise AssertionError(f"{what}: {key}: streams missing")
+    for key in ("llama", "mixtral"):
+        layers = r0[key]["layers"]
+        for r in ranks:
+            if r[key]["wire"] != {"all_reduce": 2 * layers} or \
+                    not r[key]["finite"]:
+                raise AssertionError(f"{what}: {key}: a decode step on rank "
+                                     f"{r['rank']} handed "
+                                     f"{r[key]['wire']} to torch.distributed"
+                                     f" (want {2 * layers} all-reduces and "
+                                     f"nothing else), finite logits "
+                                     f"{r[key]['finite']}")
+    if not r0["shard_equal"]:
+        raise AssertionError(f"{what}: rank 0's exported shard is not its "
+                             f"block of the whole export")
+    for key in ("llama", "mixtral_parity"):
+        gaps = [r0[key]["prefill_gap"]] + r0[key]["decode_gaps"]
+        if max(gaps) > SERVE_NORMWISE:
+            raise AssertionError(f"{what}: {key}: teacher-forced logits "
+                                 f"{gaps} normwise from the whole model's, "
+                                 f"past {SERVE_NORMWISE}")
+
+    def rate(res):
+        s = _median(res["steps"])
+        return (f"decode step at {SERVE_SLOTS} active slots "
+                f"{_spread(res['steps'])}, {SERVE_SLOTS / s:.1f} tokens/s")
+
+    lm = r0["llama"]
+    log("serve-tp", f"{what}, llama3_8b() at {lm['layers']} layers, bf16: rank "
+                    f"0's exported shard is its block of the whole export "
+                    f"bit for bit; teacher-forced logits within "
+                    f"{lm['prefill_gap']:.2e} (prefill) and "
+                    f"{max(lm['decode_gaps']):.2e} (decode, positions 27-34)"
+                    f" normwise of the whole model on one card (gate "
+                    f"{SERVE_NORMWISE:.2e}); {SERVE_TP_REQUESTS} streams of "
+                    f"{SERVE_MAX_NEW} tokens equal on every rank, "
+                    f"{len(lm['flips'])} parting from the whole model's at "
+                    f"near ties (margins {lm['flips']} RMS); a decode step "
+                    f"hands {lm['wire']} to torch.distributed and nothing "
+                    f"else; compile_counts {lm['counts']}; tp: {rate(lm)}; "
+                    f"the whole model on one card: {rate(lm['whole'])}; "
+                    f"peak {max(r['llama']['peak_gb'] for r in ranks):.1f} "
+                    f"GB a rank (rank 0 also holds the whole model); on "
+                    f"{card}")
+    mp = r0["mixtral_parity"]
+    log("serve-tp", f"{what}, mixtral_8x7b() at "
+                    f"{SERVE_MIXTRAL_PARITY_LAYERS} layers, capacity factor "
+                    f"4.0 (no drops): teacher-forced logits within "
+                    f"{mp['prefill_gap']:.2e} (prefill) and "
+                    f"{max(mp['decode_gaps']):.2e} (decode) normwise of the "
+                    f"whole model on one card; router choices apart from "
+                    f"the whole model's {mp['router_flips']} of "
+                    f"{mp['routings']} routings; streams equal on every "
+                    f"rank, {len(mp['flips'])} parting from the whole "
+                    f"model's at near ties (margins {mp['flips']} RMS); on "
+                    f"{card}")
+    mx = r0["mixtral"]
+    log("serve-tp", f"{what}, mixtral_8x7b() at its {mx['layers']} layers "
+                    f"(each rank built its shard, {mx['shard_gb']:.1f} GB, "
+                    f"in {mx['build_s']:.1f} s): {SERVE_TP_REQUESTS} streams "
+                    f"equal on every rank, logits finite, a decode step "
+                    f"hands {mx['wire']} to torch.distributed; "
+                    f"{rate(mx)}; peak "
+                    f"{max(r['mixtral']['peak_gb'] for r in ranks):.1f} GB "
+                    f"a rank; on {card}")
+    return dict(zeros, **r0["launches"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5052,7 +5877,10 @@ def main():
     dlrm_launches = dlrm_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    log("one-card", f"phases 5-12, 14, 16 and 21: "
+    serve_launches = serve_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("one-card", f"phases 5-12, 14, 16, 21 and 26: "
                     f"{time.perf_counter() - t_one:.1f} s; this process "
                     f"keeps {torch.cuda.memory_reserved() / 1e9:.1f} GB "
                     f"reserved on card 0")
@@ -5079,6 +5907,7 @@ def main():
     frontend_launches = timed("frontend", frontend_phase)
     guards_launches = timed("guards", guards_phase)
     watchdog_launches = timed("watchdog", watchdog_phase)
+    serve_tp_launches = timed("serve-tp", serve_tp_phase)
     log("phases", f"multi-card phases {phase_s}; whole script "
                   f"{time.perf_counter() - T_START:.1f} s")
     errs.update(fused_errs)
@@ -5099,7 +5928,9 @@ def main():
                       "dlrm-mp": dlrm_mp_launches[name],
                       "frontend": frontend_launches[name],
                       "guards": guards_launches[name],
-                      "watchdog": watchdog_launches[name]}
+                      "watchdog": watchdog_launches[name],
+                      "serve": serve_launches[name],
+                      "serve-tp": serve_tp_launches[name]}
                for name, count in launches.items()}
     by_path.update({name: {"adasum": count,
                            "collectives": collectives_launches[name],
@@ -5107,7 +5938,9 @@ def main():
                            "dlrm-mp": dlrm_mp_launches[name],
                            "frontend": frontend_launches[name],
                            "guards": guards_launches[name],
-                           "watchdog": watchdog_launches[name]}
+                           "watchdog": watchdog_launches[name],
+                           "serve": serve_launches[name],
+                           "serve-tp": serve_tp_launches[name]}
                     for name, count in adasum_launches.items()})
     launches.update(adasum_launches)
 
@@ -5153,4 +5986,6 @@ if __name__ == "__main__":
         sys.exit(guards_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--watchdog-worker"]:
         sys.exit(watchdog_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-tp-worker"]:
+        sys.exit(serve_tp_worker(sys.argv[2]))
     sys.exit(main())

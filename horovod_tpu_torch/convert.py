@@ -32,6 +32,10 @@ models; ResNet's also carry the ``batch_stats`` collection (the running
 statistics), and its conv kernels go from flax's HWIO to torch's OIHW.
 :func:`dlrm_params_from_flax` flattens DLRM's ``[T, R, D]`` tables to
 ``[T R, D]``, under a mesh one ep rank's run of tables.
+
+:func:`decode_params_from_flax` carries the serving side's decode
+parameters (the JAX package's ``export_decode_params`` of a Llama or
+Mixtral tree) to the port's (``train.step_builder.export_decode_params``).
 """
 
 from __future__ import annotations
@@ -196,6 +200,20 @@ def mixtral_params_to_flax(state_dict: Dict[str, torch.Tensor], cfg,
         lambda sd, pre: {"moe": {
             "router": {"kernel": sd[pre + "moe.router.weight"].T},
             **{n: sd[pre + f"moe.{n}"] for n in _MLP}}})
+
+
+def decode_params_from_flax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """A flax Llama's or Mixtral's ``params`` (unrolled or scanned; what
+    the JAX package's ``export_decode_params`` returns) -> the port's decode
+    parameters: the ``state_dict`` of :func:`llama_params_from_flax` or
+    :func:`mixtral_params_from_flax` through
+    ``train.step_builder.export_decode_params`` (matrices in the compute
+    dtype)."""
+    from .models.decode import is_moe
+    from .train.step_builder import export_decode_params
+    convert = mixtral_params_from_flax if is_moe(cfg) \
+        else llama_params_from_flax
+    return export_decode_params(convert(params, cfg), cfg)
 
 
 def _stack_trees(trees):

@@ -3,9 +3,10 @@ dispatch, scan folding, gradient accumulation and the pipeline step.
 
 Counterpart of ``horovod_tpu/train/step_builder.py``: ``build_program_set``,
 ``make_dispatch``, ``fold_scan``, ``accumulate_gradients``,
-``PipelineTrainState``, ``create_pipeline_train_state`` and
-``make_pipeline_train_step``, with :class:`Cadence`, the host side of the
-deferred expert-update pair.
+``PipelineTrainState``, ``create_pipeline_train_state``,
+``make_pipeline_train_step`` and ``export_decode_params`` (the training to
+serving seam), with :class:`Cadence`, the host side of the deferred
+expert-update pair.
 
 In torch there are no compiled programs. The JAX package builds up to three
 (``apply``, a cadence's ``skip``, the sentinel's no-update ``probe``); here
@@ -287,3 +288,56 @@ def make_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
             return run(state, x_microbatches, targets)
 
     return step
+
+
+# ---------------------------------------------------- training -> serving
+
+def _decode_dtype(key: str, cfg) -> torch.dtype:
+    """The dtype the decode functions read the parameter at ``key`` in:
+    f32 for the embedding table (rows gathered, then cast), the norm
+    scales and the router (the f32 islands), the compute dtype for every
+    other matrix."""
+    if key == "embedding" or key.endswith((".scale", "router.weight")):
+        return torch.float32
+    return cfg.dtype
+
+
+def export_decode_params(source, cfg=None) -> Dict[str, torch.Tensor]:
+    """The training -> serving seam: the flat decode parameters that
+    ``models/decode.py`` consumes, under the port's ``state_dict`` names.
+
+    ``source`` is a port ``Llama`` or ``Mixtral`` (its ``cfg`` is used), or
+    a ``state_dict`` of one with ``cfg`` given. A model built on a mesh
+    holds blocks: each is gathered over every axis it is split over except
+    a tp split that the decode plan shares (``models.decode.
+    decode_leaf_shard_axis``: heads and the MLP or expert width), so the
+    result is this rank's decode shard; the vocabulary's tp split of the
+    training plan is gathered whole. A plain ``state_dict`` is taken as
+    whole (or as a decode shard already).
+
+    Returns detached copies, no optimizer state. The matrix weights are
+    cast to the compute dtype once here, where JAX casts them at every
+    use (equal values; a cast a step at 8B would add about 16 GB of
+    traffic a step); the embedding, the norm scales and the router stay
+    f32."""
+    from ..models.decode import decode_leaf_shard_axis
+    from ..parallel.sharding import _all_gather, placement_of
+    if isinstance(source, torch.nn.Module):
+        cfg = source.cfg if cfg is None else cfg
+        tensors = dict(source.named_parameters())
+    else:
+        if cfg is None:
+            raise ValueError("a state_dict needs its cfg")
+        tensors = dict(source)
+    out = {}
+    with torch.no_grad():
+        for key, t in tensors.items():
+            place = placement_of(t)
+            t = t.detach().to(_decode_dtype(key, cfg), copy=True)
+            for dim, a in enumerate(place.axes if place is not None else ()):
+                kept = a is not None and a.name == "tp" and \
+                    dim == decode_leaf_shard_axis(key, place.shape, a.size)
+                if a is not None and not kept:
+                    t = _all_gather(t, a, dim)
+            out[key] = t.contiguous()
+    return out

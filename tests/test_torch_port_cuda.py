@@ -59,6 +59,13 @@
   both ranks); the watchdog rescuing a hung NCCL step within its deadline
   plus 2 s (``-k "digest_on_the_card or health_probe or frontend_handles or
   watchdog_rescues"``).
+- The paged-KV decode on the card (``-k decode``): a small bf16 Llama's
+  prefill and teacher-forced decode logits against ``Llama.forward``
+  within 2^-5 normwise, the engine's greedy streams against the forward's
+  argmax under the near-tie rule (a flip only where the reference's top-2
+  margin is at most 2^-3 RMS of its row), and the engine over tp 2 on
+  NCCL: the ranks' streams equal, and held to the one-card engine's under
+  the near-tie rule.
 - Data-parallel training across every GPU of the machine over NCCL, for two
   steps, with AdamW (lr 1e-4, weight decay 1e-4, the main path's settings)
   and with SGD and momentum. The ranks end bit-identical, and they are held
@@ -1399,3 +1406,163 @@ def test_watchdog_rescues_a_hung_nccl_step_across_gpus(cuda, tmp_path):
         env={"HOROVOD_STEP_TIMEOUT_SECONDS": "3"})]
     r0 = ranks[0]
     assert r0["raised"] and r0["aborted"] and r0["seconds"] <= 5.0, r0
+
+
+# --- the paged-KV decode on the card -----------------------------------------
+
+#: The decode path's bf16 logits against the reference's, normwise, and the
+#: near-tie bound on a flip (the reference's top-2 margin over the RMS of
+#: its row): ``chip_smoke.py``'s ``serve`` rule (the tie bound four times
+#: the normwise gate) at two layers, where the two paths' roundings add up
+#: over 2 layers, not 32: ``SERVE_NORMWISE``'s reasoning gives sqrt(20) x
+#: 2^-9 = 0.009, and 2^-5 leaves a factor of three over it.
+DECODE_NORMWISE = 2 ** -5
+DECODE_TIE = 4 * DECODE_NORMWISE
+
+
+def _decode_cfg():
+    from horovod_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                       n_kv_heads=2, hidden_dim=512, max_seq_len=512,
+                       remat=False, use_flash=True)
+
+
+def _margin(row):
+    top = row.float().topk(2).values
+    return ((top[0] - top[1]) / row.float().square().mean().sqrt()).item()
+
+
+def test_decode_on_the_card_matches_the_full_forward(cuda):
+    """A small bf16 Llama on the card: prefill logits and teacher-forced
+    decode logits (positions 27-34, across a block boundary, 1 of 4 slots
+    active) within 2^-5 normwise of ``Llama.forward`` (B1) at the same
+    weights; the engine's greedy streams equal the forward's argmax on
+    their own prefix but at near ties (top-2 margin at most 2^-3 RMS);
+    the null block zero; no kernel of B1-B5 on the decode path."""
+    from horovod_tpu_torch.models import decode as MD
+    from horovod_tpu_torch.models.llama import Llama
+    from horovod_tpu_torch.serving import DecodeEngine
+    from horovod_tpu_torch.train.step_builder import export_decode_params
+    cfg = _decode_cfg()
+    model = Llama(cfg, seed=0)
+    params = export_decode_params(model)
+    gen = torch.Generator().manual_seed(0)
+    seq = torch.randint(0, cfg.vocab_size, (35,), generator=gen).tolist()
+    with torch.no_grad():
+        ref = model(torch.tensor([seq], device="cuda"))[0]
+    kp, vp = MD.init_kv_pools(cfg, 16, 16)
+    padded = torch.zeros((1, 32), dtype=torch.long, device="cuda")
+    padded[0, :27] = torch.tensor(seq[:27])
+    logits, kp, vp = MD.make_prefill(cfg, 16)(
+        params, kp, vp, padded, torch.tensor([1, 2], device="cuda"))
+    gap = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    assert gap(logits[0, :27], ref[:27]) <= DECODE_NORMWISE
+    decode = MD.make_decode_step(cfg, 16)
+    tables = torch.zeros((4, 8), dtype=torch.long, device="cuda")
+    tables[0, :3] = torch.tensor([1, 2, 3])
+    active = torch.tensor([True, False, False, False], device="cuda")
+    for pos in range(27, 35):
+        toks = torch.tensor([seq[pos], 0, 0, 0], device="cuda")
+        poss = torch.tensor([pos, 0, 0, 0], device="cuda")
+        lg, _, kp, vp = decode(params, kp, vp, toks, poss, tables, active)
+        assert gap(lg[0], ref[pos]) <= DECODE_NORMWISE, pos
+    assert not kp[:, 0].any() and not vp[:, 0].any()
+    eng = DecodeEngine(cfg, params=params, slots=4, block_size=16,
+                       pool_blocks=33, max_blocks_per_slot=8,
+                       prefill_buckets=(32, 64))
+    from horovod_tpu_torch.ops import flash_attention as fa
+    fa.reset_launch_counts()
+    prompts = [seq[:n] for n in (5, 27, 40, 60)]
+    reqs = [eng.submit(p, 24) for p in prompts]
+    eng.run_until_idle()
+    assert all(f.launches == 0 for f in fa.KERNELS.values())
+    for p, r in zip(prompts, reqs):
+        with torch.no_grad():
+            rows = model(torch.tensor([r.tokens[:-1]], device="cuda"))[0]
+        want = rows[len(p) - 1:].argmax(-1).tolist()
+        for j, (w, g) in enumerate(zip(want, r.tokens[len(p):])):
+            if w != g:
+                assert _margin(rows[len(p) - 1 + j]) <= DECODE_TIE
+    assert not eng._kp[:, 0].any() and not eng._vp[:, 0].any()
+
+
+_DECODE_TP_WORKER = textwrap.dedent("""
+    import json
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import decode as MD
+    from horovod_tpu_torch.models.llama import Llama, LlamaConfig
+    from horovod_tpu_torch.parallel import create_mesh
+    from horovod_tpu_torch.serving import DecodeEngine
+    from horovod_tpu_torch.train.step_builder import export_decode_params
+
+    out_dir, _, name = sys.argv[1:4]
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    cfg = LlamaConfig(vocab_size=1024, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=512, max_seq_len=512,
+                      remat=False)
+    whole = export_decode_params(Llama(cfg, seed=0))
+    mesh = create_mesh({"tp": n})
+    kw = dict(slots=4, block_size=16, pool_blocks=33, max_blocks_per_slot=8,
+              prefill_buckets=(32, 64))
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, 1024, (k,), generator=gen).tolist()
+               for k in (5, 27, 40, 60)]
+
+    def run(eng):
+        reqs = [eng.submit(p, 24) for p in prompts] if rank == 0 else []
+        eng.run_until_idle()
+        return eng, [r.tokens for r in reqs]
+
+    eng = DecodeEngine(cfg, params=MD.decode_shard(cfg, whole, n, rank),
+                       mesh=mesh, **kw)
+    retired = []
+    real = eng._retire
+    def retire(idx, truncated=False):
+        req = eng.slots[idx].req
+        real(idx, truncated)
+        retired.append(req.tokens)
+    eng._retire = retire
+    eng, tp = run(eng)
+    eng.close()
+    out = {"retired": retired}
+    if rank == 0:
+        _, one = run(DecodeEngine(cfg, params=whole, **kw))
+        prefill = MD.make_prefill(cfg, 16)
+        margins = []
+        for a, b in zip(tp, one):
+            if a == b:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            T = -(-i // 16) * 16
+            kp, vp = MD.init_kv_pools(cfg, T // 16 + 1, 16)
+            padded = torch.zeros((1, T), dtype=torch.long, device="cuda")
+            padded[0, :i] = torch.tensor(a[:i])
+            lg, *_ = prefill(whole, kp, vp, padded,
+                             torch.arange(1, T // 16 + 1, device="cuda"))
+            row = lg[0, i - 1].float()
+            top = row.topk(2).values
+            margins.append(((top[0] - top[1])
+                            / row.square().mean().sqrt()).item())
+        out.update(tp=tp, margins=margins)
+    np.savez(f"{out_dir}/{name}_w{n}_r{rank}.npz",
+             result=np.asarray(json.dumps(out)))
+    hvd.shutdown()
+""")
+
+
+def test_decode_tp_streams_across_gpus(cuda, tmp_path):
+    """The engine over tp 2 on NCCL: both ranks retire the same streams,
+    and where they part from the one-card engine's at the same weights
+    the one-card prefill's top-2 margin is at most 2^-3 RMS (the tp ranks
+    sum bf16 partials in another order)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs")
+    ranks = [json.loads(str(r["result"])) for r in run_world(
+        str(tmp_path), 2, "cuda", "decode_tp", _DECODE_TP_WORKER)]
+    assert ranks[0]["retired"] == ranks[1]["retired"]
+    assert len(ranks[0]["tp"]) == 4
+    assert all(m <= DECODE_TIE for m in ranks[0]["margins"]), ranks[0]

@@ -54,7 +54,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                    "core/logging.py", "core/telemetry.py", "core/sentinel.py",
                    "core/watchdog.py", "tools/autotune.py",
                    "frontend/__init__.py", "frontend/mpi_ops.py",
-                   "frontend/functions.py", "frontend/optimizer.py"):
+                   "frontend/functions.py", "frontend/optimizer.py",
+                   "models/decode.py", "serving/__init__.py",
+                   "serving/constants.py", "serving/decode.py",
+                   "serving/registry.py", "serving/server.py"):
         assert pkg / module in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
@@ -221,17 +224,27 @@ def test_sync_batch_norm_in_a_world_of_one_issues_no_collective(monkeypatch):
         thvd.shutdown()
 
 
-@pytest.mark.parametrize("make", ["resnet", "bert", "dlrm"])
+@pytest.mark.parametrize("make", ["resnet", "bert", "dlrm", "engine"])
 def test_models_default_to_the_card(make):
-    """Without a device and without an initialised context the models are
-    made on "cuda": here, with no card, that raises instead of falling back
-    to the CPU."""
+    """Without a device and without an initialised context the models (and
+    the decode engine's pools) are made on "cuda": here, with no card, that
+    raises instead of falling back to the CPU."""
     from horovod_tpu_torch.models.bert import Bert, bert_tiny
     from horovod_tpu_torch.models.dlrm import DLRM, dlrm_tiny
+    from horovod_tpu_torch.models.llama import llama_tiny
     from horovod_tpu_torch.models.resnet import ResNetTiny
+    from horovod_tpu_torch.serving import DecodeEngine
+
+    class _Engine(DecodeEngine):
+        def parameters(self):
+            yield self._kp
+
     build = {"resnet": lambda: ResNetTiny(num_classes=10),
              "bert": lambda: Bert(bert_tiny()),
-             "dlrm": lambda: DLRM(dlrm_tiny())}[make]
+             "dlrm": lambda: DLRM(dlrm_tiny()),
+             "engine": lambda: _Engine(llama_tiny(), slots=2, block_size=4,
+                                       pool_blocks=8, max_blocks_per_slot=4,
+                                       prefill_buckets=(8,))}[make]
     assert not thvd.is_initialized()
     if torch.cuda.is_available():
         assert next(build().parameters()).is_cuda
@@ -314,6 +327,42 @@ def test_every_reference_collective_has_a_counterpart_or_a_roadmap_entry():
         elif getattr(frontend, name, None) is None:
             missing.append(f"frontend.{name}")
     assert missing == []
+
+
+def _reference_serving_names():
+    """The names ``horovod_tpu/serving/__init__.py`` imports, read from the
+    source (no jax import)."""
+    tree = ast.parse((REPO / "horovod_tpu" / "serving" /
+                      "__init__.py").read_text())
+    return {a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+def _roadmap_slice(number: int) -> str:
+    """The text of ROADMAP.md's queue entry for slice ``number``, up to
+    the next numbered entry."""
+    text = (REPO / "ROADMAP.md").read_text()
+    start = text.index(f"**Slice {number}:")
+    nxt = re.search(r"\n\d+\. \*\*", text[start:])
+    return text[start:start + (nxt.start() if nxt else len(text))]
+
+
+def test_every_reference_serving_name_is_ported_or_queued():
+    """Each name the JAX package's ``serving`` exports is exported by
+    ``horovod_tpu_torch.serving``, or is named (in backquotes) by
+    ROADMAP.md's entry for the slice that ports it: a later slice cannot
+    drop one silently."""
+    from horovod_tpu_torch import serving
+    names = _reference_serving_names()
+    assert {"DecodeEngine", "InferenceServer", "Publisher",
+            "FleetClient"} <= names
+    queued = " ".join(_roadmap_slice(15).split())
+    missing = sorted(n for n in names if getattr(serving, n, None) is None
+                     and f"`{n}`" not in queued)
+    assert missing == []
+    assert {n for n in names if getattr(serving, n, None) is None} == {
+        "Publisher", "attach", "detach", "leaves_digest", "FleetClient",
+        "FleetOverloadedError", "FleetRequestError", "ReplicaAgent"}
 
 
 def test_frontend_build_probes_say_what_is_true():
